@@ -1,0 +1,50 @@
+"""pyjac_tpu_torch — analytical-Jacobian chemical kinetics in PyTorch + CUDA.
+
+The port of :mod:`pyjac_tpu` (JAX, Pallas kernels for the TPU) to
+PyTorch and hand-written CUDA kernels for the NVIDIA H100.  It computes
+in native float64 and imports neither JAX nor :mod:`pyjac_tpu`.
+
+Quick start::
+
+    import torch
+    import pyjac_tpu_torch as pjt
+
+    mech = pjt.Mechanism.from_files('mech.inp', 'therm.dat')
+    packed = pjt.pack(mech)
+    # y = [T, Y_1..Y_{N-1}] float64 with arbitrary leading batch dims
+    f = pjt.dydt(packed, 0.0, pressure, y)            # (..., N)
+    J = pjt.eval_jacobian(packed, 0.0, pressure, y)   # (..., N, N)
+
+    # the compressed sparse pipeline; on a CUDA device it runs the
+    # hand-written kernels of pyjac_tpu_torch/csrc
+    sj = pjt.SparseJacobian(packed, device='cuda')
+    J, f = sj(y_batch, P_batch)                       # (B, N, N), (B, N)
+"""
+
+from .core.chemkin import MechanismError, read_mech, read_thermo
+from .core.ir import Reaction, Species
+from .core.mech import Mechanism, get_species_mappings
+from .core.pack import PackedMechanism, pack, packed_from_arrays
+from .ops.dydt import dydt, dydt_conp, dydt_conv, split_state
+from .ops.jacobian import (eval_jacobian, jacobian_and_dydt, jacobian_fwd,
+                           jacobian_vector_product)
+from .ops.jacobian_sparse import SparseJacobian
+from .ops.rates import (compact_pres_mod, compact_rev, eval_kc, eval_kf,
+                        eval_rxn_rates, eval_spec_rates, get_rxn_pres_mod,
+                        rates_of_progress, third_body_concentrations)
+from .ops.thermo import (eval_conc, eval_conc_rho, eval_cp, eval_cv,
+                         eval_h, eval_smh, eval_u)
+
+__version__ = '0.1.0'
+
+__all__ = [
+    'Mechanism', 'MechanismError', 'PackedMechanism', 'Reaction',
+    'SparseJacobian', 'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
+    'dydt_conp', 'dydt_conv', 'eval_conc', 'eval_conc_rho', 'eval_cp',
+    'eval_cv', 'eval_h', 'eval_jacobian', 'eval_kc', 'eval_kf',
+    'eval_rxn_rates', 'eval_smh', 'eval_spec_rates', 'eval_u',
+    'get_rxn_pres_mod', 'get_species_mappings', 'jacobian_and_dydt',
+    'jacobian_fwd', 'jacobian_vector_product', 'pack', 'packed_from_arrays',
+    'rates_of_progress', 'read_mech', 'read_thermo', 'split_state',
+    'third_body_concentrations',
+]

@@ -1,0 +1,436 @@
+"""Compressed ("touched") sparse Jacobian + dy/dt pipeline in float64.
+
+PyTorch port of ``pyjac_tpu.ops.pallas_dd.PallasDDJacobianSparse``
+with ``fuse_gather=True`` (``pallas_dd.py:2255-2527``), the flagship's
+main path.  Two stages, each a hand-written CUDA kernel on the card
+(``csrc/sparse_stage_a.cu``, ``csrc/sparse_stage_b.cu``, launched from
+:mod:`.kernels`) with its plain PyTorch version in this module:
+
+* **stage A** (:func:`stage_a_reference`; TPU kernel ``_kernel_dd_src``)
+  — per state: thermo, rates, pressure modification, per-slot assembly
+  values, dy/dt and the temperature column.  It writes the stacked
+  per-reaction *source array*
+  ``[vals_f_s; vals_p_s; psi_q*effval_s; xi_q|0; zero row]``
+  (``_stack_expanded_src``), ``col0`` and ``f``, and the nine
+  column-finishing rows of ``_postcol_stream_spec``.
+* **stage B** (:func:`stage_b_reference`; TPU kernel
+  ``_kernel_dd_cols_fused``) — per reduced-species column j: gather the
+  column's role rows ``gidx[j]`` of the source array, contract them with
+  the column's signed stoichiometry ``nuc[j]`` (N x Rmax instead of the
+  dense N x R), scale by 1/W_j and finish with ``_post_col``.
+
+Differences from the TPU pipeline, all consequences of native f64:
+no double-float pairs, no sliced matmuls (``nuc`` holds the true signed
+``nu_net`` columns, so there are no "deep" columns and fractional nu is
+accepted), no column padding to a block multiple and no source-stack
+padding.  Layout is batch-minor ``(rows, B)`` at the kernel boundary,
+one state per CUDA thread with consecutive states at consecutive
+addresses (the reference CUDA's ``INDEX()`` structure-of-arrays).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .common import F64, as_f64, to_device
+from .jacobian import heat_terms, reaction_parts
+
+# largest reactant / product slot count the stage-A kernel unrolls
+MAX_SLOTS = 8
+
+# kind codes of the stage-A kernel's per-reaction pressure modification
+KIND_NONE, KIND_THD, KIND_LINDEMANN, KIND_TROE = 0, 1, 2, 3
+
+# the int32 tables of stage_a_tables (all others are float64)
+STAGE_A_INT_TABLES = ('reac_sp', 'prod_sp', 'rev', 'kind', 'troe_has_T2',
+                      'nu_ptr', 'nu_col', 'thd_ptr', 'thd_col')
+
+
+# ---------------------------------------------------------------------------
+# host tables (numpy)
+# ---------------------------------------------------------------------------
+
+def eff_slots(packed):
+    """Third-body efficiencies of the reduced species as sparse slots.
+
+    Returns ``(S_eff, eff_idx, eff_val)`` with ``eff_idx`` (R, S_eff)
+    the species index (-1 padded) and ``eff_val`` (R, S_eff) the raw
+    ``eff_m1`` value, packed in the slot order of
+    ``pallas_dd._consts_dd``; ``S_eff`` is 0 without pressure
+    modification and at least 1 with it.
+    """
+    R = packed.n_reactions
+    if not packed.has_pres_mod:
+        return 0, np.zeros((R, 0), np.int64), np.zeros((R, 0))
+    eff_red = np.asarray(packed.eff_m1[:, :-1], np.float64)
+    nnz_rows = [np.nonzero(eff_red[r])[0] for r in range(R)]
+    S_eff = max(max(len(z) for z in nnz_rows), 1)
+    eff_idx = np.full((R, S_eff), -1, np.int64)
+    eff_val = np.zeros((R, S_eff))
+    for r, z in enumerate(nnz_rows):
+        eff_idx[r, :len(z)] = z
+        eff_val[r, :len(z)] = eff_red[r, z]
+    return S_eff, eff_idx, eff_val
+
+
+def column_tables(packed) -> dict:
+    """Expanded per-column role tables (``_sparse_col_pack_expanded``).
+
+    Each (column j, participating reaction) pair expands into one row
+    per *role* — forward slot, product slot, third-body efficiency
+    slot, specific-pdep species — so column j's assembly operand is a
+    pure gather of source rows ``gidx[j]``; the role sign and the
+    linear combination across roles live in ``nuc[j, :, i] = sign *
+    nu_net[r, :]`` (true f64).  Role order, ``Rmax`` (a multiple of 8,
+    at least 8) and the zero-row padding match the TPU tables exactly.
+
+    Also returns the stage-B kernel's per-column CSR over species rows
+    (``col_ptr`` (J*N + 1,), ``col_src`` source row, ``col_coef``), and
+    the column-independent ``at_last`` / ``pd_last`` coefficients that
+    ``_finish_dd`` contracts once into ``v_c``.
+    """
+    N, R = packed.n_species, packed.n_reactions
+    J = N - 1
+    Sf, Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
+    reac_sp, prod_sp = np.asarray(packed.reac_sp), np.asarray(packed.prod_sp)
+    reac_nu, prod_nu = np.asarray(packed.reac_nu), np.asarray(packed.prod_nu)
+    nu_net = np.asarray(packed.nu_net, np.float64)
+    S_eff, eff_idx, eff_val = eff_slots(packed)
+    pd = np.asarray(packed.pdep_sp_idx)
+
+    roles = [[] for _ in range(J)]
+    for s in range(Sf):
+        ok = (reac_nu[:, s] != 0) & (reac_sp[:, s] < J)
+        for r in np.nonzero(ok)[0]:
+            roles[reac_sp[r, s]].append((s * R + r, r, 1.0))
+    for s in range(Sp):
+        ok = (prod_nu[:, s] != 0) & (prod_sp[:, s] < J)
+        for r in np.nonzero(ok)[0]:
+            roles[prod_sp[r, s]].append(((Sf + s) * R + r, r, -1.0))
+    if packed.has_pres_mod:
+        for r in range(R):
+            for s in range(S_eff):
+                if eff_idx[r, s] >= 0:
+                    roles[eff_idx[r, s]].append(((Sf + Sp + s) * R + r, r,
+                                                 1.0))
+        for r in np.nonzero((pd >= 0) & (pd < J))[0]:
+            roles[pd[r]].append(((Sf + Sp + S_eff) * R + r, r, 1.0))
+
+    n_src = (Sf + Sp + S_eff + 1) * R + 1
+    zero_row = n_src - 1
+    Rmax = max(8, -(-max(len(x) for x in roles) // 8) * 8)
+    gidx = np.full((J, Rmax), zero_row, np.int64)
+    nuc = np.zeros((J, N, Rmax))
+    for j in range(J):
+        for i, (src, r, sign) in enumerate(roles[j]):
+            gidx[j, i] = src
+            nuc[j, :, i] = sign * nu_net[r, :]
+
+    ptr, rows, coef = [0], [], []
+    for j in range(J):
+        for n in range(N):
+            nz = np.nonzero(nuc[j, n])[0]
+            rows.extend(gidx[j, nz].tolist())
+            coef.extend(nuc[j, n, nz].tolist())
+            ptr.append(len(rows))
+
+    return dict(N=N, R=R, J=J, Sf=Sf, Sp=Sp, S_eff=S_eff, n_src=n_src,
+                Rmax=Rmax, gidx=gidx, nuc=nuc, eff_val=eff_val,
+                **finish_coefs(packed),
+                col_ptr=np.asarray(ptr, np.int32),
+                col_src=np.asarray(rows, np.int32),
+                col_coef=np.asarray(coef, np.float64))
+
+
+def finish_coefs(packed) -> dict:
+    """Column-independent pressure-modification coefficients hoisted out
+    of every column (``_finish_dd``): ``at_last[r] = eff_m1[r, N-1] /
+    W_N`` and ``pd_last[r] = -1/W_N`` where reaction r's pdep species is
+    the eliminated one; ``v_c = nu^T c_1 - nu^T (psi_q at_last) +
+    nu^T (xi_q pd_last)``."""
+    N, R = packed.n_species, packed.n_reactions
+    inv_mw = np.asarray(packed.inv_mw, np.float64)
+    pd = np.asarray(packed.pdep_sp_idx)
+    at_last = (np.asarray(packed.eff_m1[:, -1], np.float64) * inv_mw[-1]
+               if packed.has_pres_mod else np.zeros(R))
+    return dict(at_last=at_last,
+                pd_last=np.where(pd == N - 1, -inv_mw[-1], 0.0))
+
+
+def post_rows(N: int, J: int) -> dict:
+    """Row ranges of the nine ``_postcol_stream_spec`` rows inside the
+    one (n_post, B) ``post`` array: ``v_u, v_c, eWn, cp`` (N rows each),
+    ``fkJ, mr`` (J each), ``ish, mw_avg, fT`` (1 each)."""
+    out, row = {}, 0
+    for name, n in (('v_u', N), ('v_c', N), ('eWn', N), ('cp', N),
+                    ('fkJ', J), ('mr', J), ('ish', 1), ('mw_avg', 1),
+                    ('fT', 1)):
+        out[name] = (row, row + n)
+        row += n
+    return out
+
+
+def kernel_unsupported(packed) -> list:
+    """Categories of ``packed`` the CUDA stage-A kernel does not cover
+    (the plain version covers them all)."""
+    flags = [('PLOG', packed.has_plog), ('Chebyshev', packed.has_cheb),
+             ('SRI', packed.has_sri),
+             ('chemically-activated', packed.has_chemact),
+             ('species-specific pdep', packed.has_specific_pdep_sp),
+             ('fractional nu', packed.has_frac_nu),
+             ('more than %d reactant/product slots' % MAX_SLOTS,
+              max(packed.reac_sp.shape[1], packed.prod_sp.shape[1]) >
+              MAX_SLOTS)]
+    return [name for name, bad in flags if bad]
+
+
+def stage_a_tables(packed, ct) -> dict:
+    """The stage-A kernel's mechanism tables, flattened row-major, in
+    the order of the C struct ``StageATables`` (``csrc/
+    sparse_stage_a.cu``): float64 arrays first, then int32 arrays.
+    Per-reaction nu_net and third-body efficiency rows are CSR."""
+    R = packed.n_reactions
+    f64 = lambda a: np.ascontiguousarray(np.asarray(a, np.float64).ravel())
+    i32 = lambda a: np.ascontiguousarray(np.asarray(a).astype(np.int32)
+                                         .ravel())
+    nu_net = np.asarray(packed.nu_net, np.float64)
+    nu_ptr, nu_col, nu_val = _csr(nu_net)
+    eff = (np.asarray(packed.eff_m1, np.float64) if packed.has_pres_mod
+           else np.zeros_like(nu_net))
+    thd_ptr, thd_col, thd_val = _csr(eff)
+    kind = np.full(R, KIND_NONE)
+    kind[np.asarray(packed.thd_only_mask)] = KIND_THD
+    fall = np.asarray(packed.falloff_mask)
+    troe = np.asarray(packed.troe_mask)
+    kind[fall & ~troe] = KIND_LINDEMANN
+    kind[fall & troe] = KIND_TROE
+    tp = np.asarray(packed.troe_par, np.float64)
+    return {
+        'mw': f64(packed.mw), 'inv_mw': f64(packed.inv_mw),
+        'T_mid': f64(packed.T_mid), 'a_lo': f64(packed.a_lo),
+        'a_hi': f64(packed.a_hi), 'logA': f64(packed.logA),
+        'beta': f64(packed.beta), 'Ta': f64(packed.Ta),
+        'A_sign': f64(packed.A_sign), 'sum_nu': f64(packed.sum_nu),
+        'ordf': f64(np.asarray(packed.reac_nu).sum(1)),
+        'ordr': f64(np.asarray(packed.prod_nu).sum(1)),
+        'reac_nu': f64(packed.reac_nu), 'prod_nu': f64(packed.prod_nu),
+        'low_logA': f64(packed.low_logA), 'low_beta': f64(packed.low_beta),
+        'low_Ta': f64(packed.low_Ta),
+        'troe_a': f64(tp[:, 0]),
+        'troe_T3': f64(np.where(troe, tp[:, 1], 1.0)),
+        'troe_T1': f64(np.where(troe, tp[:, 2], 1.0)),
+        'troe_T2': f64(tp[:, 3]),
+        'at_last': f64(ct['at_last']), 'eff_val': f64(ct['eff_val']),
+        'nu_val': f64(nu_val), 'thd_val': f64(thd_val),
+        'reac_sp': i32(packed.reac_sp), 'prod_sp': i32(packed.prod_sp),
+        'rev': i32(packed.rev_mask), 'kind': i32(kind),
+        'troe_has_T2': i32(packed.troe_has_T2),
+        'nu_ptr': i32(nu_ptr), 'nu_col': i32(nu_col),
+        'thd_ptr': i32(thd_ptr), 'thd_col': i32(thd_col),
+    }
+
+
+def _csr(mat):
+    """Row-wise CSR (ptr, col, val) of the nonzeros of a dense matrix."""
+    ptr, col, val = [0], [], []
+    for row in mat:
+        nz = np.nonzero(row)[0]
+        col.extend(nz.tolist())
+        val.extend(row[nz].tolist())
+        ptr.append(len(col))
+    return (np.asarray(ptr), np.asarray(col, np.int64),
+            np.asarray(val, np.float64))
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the two kernels
+# ---------------------------------------------------------------------------
+
+def stage_a_reference(packed, y_t, P_t, conp: bool = True) -> dict:
+    """Plain PyTorch version of the stage-A kernel.
+
+    ``y_t`` (N, B) and ``P_t`` (1, B) float64, batch-minor; ``P_t`` is
+    pressure (CONP) or density (CONV).  Returns ``src`` (n_src, B),
+    ``col0`` (N, B), ``f`` (N, B) and ``post`` (n_post, B) — exactly the
+    arrays the kernel writes (rows of ``post`` per :func:`post_rows`).
+    Covers every reaction category through
+    :func:`~pyjac_tpu_torch.ops.jacobian.reaction_parts`.
+    """
+    J = packed.n_species - 1
+    dev = y_t.device
+    S_eff, _, eff_val = eff_slots(packed)
+    last = finish_coefs(packed)
+    p = reaction_parts(packed, P_t[0], y_t.T, conp=conp)
+    T, rho, y_full = p['T'], p['rho'], p['y_full']
+    B = T.shape[0]
+
+    # --- the source stack, (n_src, B) -----------------------------------
+    pmrho = (p['pm'] * rho[:, None])[..., None]                 # (B, R, 1)
+    vals_f = pmrho * (p['kf'][..., None] * p['dpf'])            # (B, R, Sf)
+    vals_p = pmrho * (p['kr'][..., None] * p['dpr'])            # (B, R, Sp)
+    psi_q = p['psi'] * p['qnet']
+    xi_q = p['xi'] * p['qnet']
+    rows = [vals_f[..., s] for s in range(vals_f.shape[-1])]
+    rows += [vals_p[..., s] for s in range(vals_p.shape[-1])]
+    for s in range(S_eff):
+        rows.append(psi_q * torch.as_tensor(eff_val[:, s], device=dev))
+    rows.append(xi_q if packed.has_specific_pdep_sp
+                else torch.zeros_like(psi_q))
+    src = torch.cat([torch.stack(rows, 0).transpose(1, 2).reshape(-1, B),
+                     torch.zeros((1, B), dtype=F64, device=dev)], 0)
+
+    # --- stoichiometric contractions and thermodynamic closure ------------
+    tb = to_device(packed, dev)
+    mw, nu_net = tb.mw, tb.nu_net
+    omega = p['q'] @ nu_net                                      # (B, N)
+    domega_dT = p['dq_dT'] @ nu_net
+    v_u = p['c_u'] @ nu_net
+    cv = p['c_1']
+    if packed.has_pres_mod:
+        cv = cv - psi_q * torch.as_tensor(last['at_last'], device=dev)
+        if packed.has_specific_pdep_sp:
+            cv = cv + xi_q * torch.as_tensor(last['pd_last'], device=dev)
+    v_c = cv @ nu_net
+    cp, e_spec, dcp = heat_terms(packed, T, conp)
+    sh = torch.sum(cp * y_full, dim=-1)
+    dsh_dT = torch.sum(dcp * y_full, dim=-1)
+    rho_inv = 1.0 / rho
+    fk = omega * mw * rho_inv[:, None]
+    denomT = rho * sh
+    eWn = e_spec * mw / denomT[:, None]
+    fT = -torch.sum(eWn * omega, dim=-1)
+    dlnrho_dT = p['dlnrho_dT']
+    JYT = (mw[:J] * rho_inv[:, None] * domega_dT[:, :J] -
+           fk[:, :J] * dlnrho_dT[:, None])
+    JTT = (-(torch.sum(cp * mw * omega / denomT[:, None], dim=-1) +
+             torch.sum(eWn * domega_dT, dim=-1)) -
+           fT * (dlnrho_dT + dsh_dT / sh))
+    col0 = torch.cat([JTT[:, None], JYT], 1).T
+    f = torch.cat([fT[:, None], fk[:, :J]], 1).T
+    post = torch.cat([v_u, v_c, eWn, cp, fk[:, :J],
+                      mw[:J] * rho_inv[:, None], (1.0 / sh)[:, None],
+                      p['mw_avg'][:, None], fT[:, None]], 1).T
+    return dict(src=src.contiguous(), col0=col0.contiguous(),
+                f=f.contiguous(), post=post.contiguous())
+
+
+def stage_b_reference(gidx, nuc, inv_mw, src, post, conp: bool = True):
+    """Plain PyTorch version of the stage-B kernel.
+
+    ``gidx`` (J, Rmax) source rows, ``nuc`` (J, N, Rmax) signed
+    stoichiometry, ``inv_mw`` (N,), ``src`` (n_src, B) and ``post``
+    (n_post, B) from stage A.  Returns the Jacobian columns 1..J as
+    (J, N, B): ``out[j, 0]`` is d(dT/dt)/dY_j and ``out[j, 1 + k]`` is
+    d(dY_k/dt)/dY_j.
+    """
+    J, N, _ = nuc.shape
+    rows = post_rows(N, J)
+    g = {k: post[a:b] for k, (a, b) in rows.items()}
+    u = inv_mw[:J] - inv_mw[N - 1]                                 # (J,)
+    p1 = src[gidx]                                          # (J, Rmax, B)
+    dcol = torch.einsum('jnr,jrb->jnb', nuc, p1) * inv_mw[:J, None, None]
+    dcol = dcol + g['v_u'][None] * u[:, None, None] + g['v_c'][None]
+    if conp:
+        r = -(g['mw_avg'] * u[:, None])                             # (J, B)
+    else:
+        r = torch.zeros((J, src.shape[1]), dtype=F64, device=src.device)
+    JYY = g['mr'][None] * dcol[:, :J] - g['fkJ'][None] * r[:, None, :]
+    JTY = (-torch.sum(g['eWn'][None] * dcol, dim=1) -
+           g['fT'] * (r + (g['cp'][:J] - g['cp'][N - 1]) * g['ish']))
+    return torch.cat([JTY[:, None], JYY], 1)
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+class SparseJacobian(nn.Module):
+    """f64 analytical Jacobian + dy/dt through the compressed-column
+    pipeline — the port of ``PallasDDJacobianSparse(fuse_gather=True)``.
+
+    The mechanism tables are registered buffers, so ``.to(device)``
+    moves them.  On CUDA tensors every call launches the two kernels of
+    :mod:`.kernels` (or raises); on CPU tensors it runs their plain
+    versions.  Moving the module to CUDA raises ``NotImplementedError``
+    for a mechanism the stage-A kernel does not cover
+    (:func:`kernel_unsupported`).
+    """
+
+    def __init__(self, packed, conp: bool = True, device=None):
+        super().__init__()
+        self.packed = packed
+        self.conp = bool(conp)
+        ct = column_tables(packed)
+        self.N, self.R, self.J = ct['N'], ct['R'], ct['J']
+        self.Sf, self.Sp, self.S_eff = ct['Sf'], ct['Sp'], ct['S_eff']
+        self.n_src, self.Rmax = ct['n_src'], ct['Rmax']
+        self.n_post = 4 * self.N + 2 * self.J + 3
+        self.unsupported = kernel_unsupported(packed)
+        self.register_buffer('gidx', torch.as_tensor(ct['gidx']))
+        self.register_buffer('nuc', torch.as_tensor(ct['nuc']))
+        self.register_buffer('inv_mw', torch.as_tensor(
+            np.asarray(packed.inv_mw, np.float64)))
+        for name in ('col_ptr', 'col_src', 'col_coef'):
+            self.register_buffer(name, torch.as_tensor(ct[name]))
+        for name, arr in stage_a_tables(packed, ct).items():
+            self.register_buffer('ka_' + name, torch.as_tensor(arr))
+        if device is not None:
+            self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.inv_mw.device
+
+    def _apply(self, fn, *args, **kwargs):
+        out = super()._apply(fn, *args, **kwargs)
+        self.check_kernel_coverage(self.device)
+        return out
+
+    def check_kernel_coverage(self, device) -> None:
+        """Raise ``NotImplementedError`` if ``device`` is a CUDA device
+        and the mechanism holds a category the kernels do not cover."""
+        if torch.device(device).type == 'cuda' and self.unsupported:
+            raise NotImplementedError(
+                'the CUDA stage-A kernel does not cover %s yet (ROADMAP.md '
+                'queue 1: K1 category coverage on the card); run this '
+                'mechanism on the CPU' % ', '.join(self.unsupported))
+
+    # --- the two stages ------------------------------------------------------
+    def stage_a(self, y_t, P_t) -> dict:
+        """Stage A on (N, B) states and a (1, B) pressure/density row."""
+        if y_t.device.type == 'cpu':
+            return stage_a_reference(self.packed, y_t, P_t, self.conp)
+        from . import kernels
+        return kernels.stage_a(self, y_t, P_t)
+
+    def stage_b(self, src, post):
+        """Stage B: the (J, N, B) Jacobian columns 1..J."""
+        if src.device.type == 'cpu':
+            return stage_b_reference(self.gidx, self.nuc, self.inv_mw, src,
+                                     post, self.conp)
+        from . import kernels
+        return kernels.stage_b(self, src, post)
+
+    def call_tr(self, y_t, P_t):
+        """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B) float64
+        tensors on the module's device.  Returns the Jacobian columns
+        1..J (J, N, B), the temperature column ``col0`` (N, B) and
+        dy/dt ``f`` (N, B)."""
+        a = self.stage_a(y_t, P_t)
+        return self.stage_b(a['src'], a['post']), a['col0'], a['f']
+
+    def forward(self, y, P):
+        """Batch-major: ``y`` (B, N), ``P`` scalar or (B,) -> ``J``
+        (B, N, N) with ``J[b, i, j] = d f_i / d y_j`` and ``f`` (B, N),
+        float64 on the module's device."""
+        y = as_f64(y, self.device)
+        if y.dim() != 2 or y.shape[1] != self.N:
+            raise ValueError('SparseJacobian: states must be (B, %d), got %s'
+                             % (self.N, tuple(y.shape)))
+        P = torch.broadcast_to(as_f64(P, self.device), y.shape[:1])
+        cols, col0, f = self.call_tr(y.T.contiguous(),
+                                     P[None].contiguous())
+        Jt = torch.cat([col0[None], cols], 0)          # [column, row, b]
+        return Jt.permute(2, 1, 0), f.T

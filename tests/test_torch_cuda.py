@@ -1,0 +1,95 @@
+"""The port's CUDA kernels on the card (``-m cuda``).
+
+Every test here needs a CUDA card and skips without one.  The file
+imports neither jax nor the JAX package, so it also runs where JAX is
+not installed; ``tests/conftest.py`` imports jax, so run it there with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from pyjac_tpu_torch.core.mech import Mechanism
+from pyjac_tpu_torch.core.pack import pack
+from pyjac_tpu_torch.ops import kernels
+from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian
+from pyjac_tpu_torch.testers.synthetic import flagship, synthetic_mechanism
+
+torch.set_num_threads(1)
+
+DATA = pathlib.Path(__file__).parent / 'data'
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda', 0)
+
+
+def _floored(a, b, floor):
+    a, b = a.reshape(len(b), -1), b.reshape(len(b), -1)
+    denom = np.maximum(np.abs(b),
+                       np.abs(b).max(-1, keepdims=True) * floor + 1e-300)
+    return float((np.abs(a - b) / denom).max())
+
+
+def test_kernels_match_cpu_on_card(card):
+    """The module on the card launches both kernels once and agrees with
+    its CPU run (the plain versions) on the flagship golden states."""
+    _, p = flagship()
+    g = np.load(DATA / 'golden_flagship_refc.npz')
+    J0, f0 = SparseJacobian(p)(g['y'], g['P'])
+    kernels.reset_launches()
+    J, f = SparseJacobian(p, device=card)(g['y'], g['P'])
+    torch.cuda.synchronize(card)
+    assert kernels.launches == {'stage_a': 1, 'stage_b': 1}
+    assert J.device == card and J.dtype == torch.float64
+    assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
+    f, f0 = f.cpu().numpy(), f0.numpy()
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+@pytest.mark.parametrize('B', [1, 333])
+def test_ragged_batch_on_card(card, B):
+    """Batches that are no multiple of a thread block: the kernels mask
+    the ragged edge."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:B], d['P'][:B]
+    J0, f0 = SparseJacobian(p)(y, P)
+    J, f = SparseJacobian(p, device=card)(y, P)
+    assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
+    f, f0 = f.cpu().numpy(), f0.numpy()
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+def test_uncovered_mechanism_refuses_card(card, tmp_path):
+    """PLOG / Chebyshev / SRI / fractional nu are not in the stage-A
+    kernel yet: moving such a module to the card raises."""
+    path = tmp_path / 'synth.inp'
+    path.write_text(synthetic_mechanism(n_species=9, n_reactions=24, seed=7))
+    sj = SparseJacobian(pack(Mechanism.from_files(str(path))))
+    with pytest.raises(NotImplementedError, match='PLOG'):
+        sj.to(card)
+
+
+def test_launchers_check_inputs(card):
+    _, p = flagship()
+    sj = SparseJacobian(p, device=card)
+    y_t = torch.zeros((sj.N, 256), dtype=torch.float64, device=card)
+    P_t = torch.ones((1, 256), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match='float64'):
+        kernels.stage_a(sj, y_t.float(), P_t)
+    with pytest.raises(ValueError, match='contiguous'):
+        kernels.stage_a(sj, y_t.T.contiguous().T, P_t)
+    with pytest.raises(ValueError, match='shape'):
+        kernels.stage_b(sj, torch.zeros((sj.n_src + 1, 256),
+                                        dtype=torch.float64, device=card),
+                        torch.zeros((sj.n_post, 256), dtype=torch.float64,
+                                    device=card))

@@ -1,0 +1,266 @@
+"""The port's compressed sparse pipeline (``SparseJacobian``) against the
+JAX package, on the CPU.
+
+On CPU tensors ``SparseJacobian`` runs the plain versions of its two
+CUDA kernels (``stage_a_reference`` / ``stage_b_reference``); these
+tests hold those plain versions, and the tables the kernels read,
+against the JAX package's ``PallasDDJacobianSparse`` tables, its dd
+stage-A math (run eagerly under ``barrier_mode('xla')`` as
+``tests/test_pallas_dd.py`` does, never jitted on the CPU), its f64
+``jacobian_and_dydt``, and the reference-C goldens.  The kernels
+themselves run only on the card (``chip_smoke.py`` and
+``tests/test_torch_cuda.py``).
+"""
+
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyjac_tpu.core.mech import Mechanism as JMechanism
+from pyjac_tpu.core.pack import pack as jpack
+from pyjac_tpu.ops.jacobian import jacobian_and_dydt as jjacobian_and_dydt
+from pyjac_tpu.testers.synthetic import (plausible_mechanism,
+                                         random_states,
+                                         synthetic_mechanism)
+from pyjac_tpu_torch.core.mech import Mechanism
+from pyjac_tpu_torch.core.pack import pack
+from pyjac_tpu_torch.ops import kernels
+from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt
+from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
+                                                 column_tables,
+                                                 kernel_unsupported,
+                                                 post_rows,
+                                                 stage_a_reference)
+
+torch.set_num_threads(1)
+
+DATA = pathlib.Path(__file__).parent / 'data'
+
+
+def _both(tmp_path, text, name='m.inp'):
+    path = tmp_path / name
+    path.write_text(text)
+    jm = JMechanism.from_files(str(path))
+    m = Mechanism.from_files(str(path))
+    return jm, jpack(jm), m, pack(m)
+
+
+@pytest.fixture(scope='module')
+def flagship(tmp_path_factory):
+    _, jp, _, p = _both(tmp_path_factory.mktemp('flag'),
+                        plausible_mechanism(53, 325, seed=42))
+    return jp, p, np.load(DATA / 'golden_flagship_refc.npz')
+
+
+@pytest.fixture(scope='module')
+def synth(tmp_path_factory):
+    _, jp, _, p = _both(tmp_path_factory.mktemp('synth'),
+                        synthetic_mechanism(n_species=9, n_reactions=24,
+                                            seed=7))
+    return jp, p, np.load(DATA / 'golden_synth_refc.npz')
+
+
+def _floored(a, b, floor):
+    a = np.asarray(a).reshape(len(b), -1)
+    b = np.asarray(b).reshape(len(b), -1)
+    denom = np.maximum(np.abs(b),
+                       np.abs(b).max(-1, keepdims=True) * floor + 1e-300)
+    return float((np.abs(a - b) / denom).max())
+
+
+def _norm_rel(a, b):
+    a = np.asarray(a).reshape(len(b), -1)
+    b = np.asarray(b).reshape(len(b), -1)
+    return float((np.abs(a - b).max(-1) / np.abs(b).max(-1)).max())
+
+
+def _row_rel(a, b):
+    """Per-row norm-relative error of (rows, B) arrays."""
+    scale = np.maximum(np.abs(b).max(-1), 1e-300)
+    return float((np.abs(a - b).max(-1) / scale).max())
+
+
+# ---------------------------------------------------------------------------
+# tables
+# ---------------------------------------------------------------------------
+
+def test_tables_match_jax_expanded_pack(flagship):
+    """``gidx`` is the JAX role table exactly; ``nuc`` is the true f64
+    signed stoichiometry the JAX table slices (``nuc * nu_rs``)."""
+    from pyjac_tpu.ops.pallas_dd import (_consts_dd,
+                                         _sparse_col_pack_expanded)
+    jp, p, _ = flagship
+    _, meta = _consts_dd(jp, compact_pdep=True)
+    SC = _sparse_col_pack_expanded(jp, meta, jb=8)
+    ct = column_tables(p)
+    J = p.n_species - 1
+    assert (ct['n_src'], ct['Rmax'], ct['S_eff']) == (SC['n_src'],
+                                                      SC['Rmax'],
+                                                      meta['S_eff'])
+    assert (ct['n_src'], ct['Rmax'], len(ct['col_coef'])) == (1951, 56, 4553)
+    assert np.array_equal(ct['gidx'], SC['gidx'][:J])
+    ref = SC['nuc'].astype(np.float64) * SC['nu_rs'].astype(np.float64)
+    assert np.array_equal(ct['nuc'], ref[:J])
+    assert not len(SC['deep_cols'])
+    # the stage-B CSR holds exactly the nonzeros of nuc
+    ptr = ct['col_ptr']
+    for j in (0, 17, J - 1):
+        for n in range(p.n_species):
+            a, b = ptr[j * p.n_species + n], ptr[j * p.n_species + n + 1]
+            nz = np.nonzero(ct['nuc'][j, n])[0]
+            assert np.array_equal(ct['col_src'][a:b], ct['gidx'][j, nz])
+            assert np.array_equal(ct['col_coef'][a:b], ct['nuc'][j, n, nz])
+
+
+def test_kernel_coverage(flagship, synth):
+    """The flagship is inside the CUDA kernels' coverage; the
+    all-features synth is not, and moving it to CUDA raises."""
+    assert kernel_unsupported(flagship[1]) == []
+    sj = SparseJacobian(synth[1])
+    assert set(sj.unsupported) >= {'PLOG', 'Chebyshev', 'SRI',
+                                   'fractional nu'}
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        sj.check_kernel_coverage('cuda')
+    sj.check_kernel_coverage('cpu')
+
+
+def test_kernel_launchers_refuse_cpu_tensors(flagship):
+    """No fallback: a kernel launcher given CPU tensors raises, builds
+    nothing and counts no launch."""
+    sj = SparseJacobian(flagship[1])
+    y_t = torch.zeros((sj.N, 4), dtype=torch.float64)
+    P_t = torch.ones((1, 4), dtype=torch.float64)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.stage_a(sj, y_t, P_t)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.stage_b(sj, torch.zeros((sj.n_src, 4), dtype=torch.float64),
+                        torch.zeros((sj.n_post, 4), dtype=torch.float64))
+    assert kernels.launches == before and kernels._lib is None
+
+
+# ---------------------------------------------------------------------------
+# stage A against the JAX dd stage-A math
+# ---------------------------------------------------------------------------
+
+def test_stage_a_matches_jax_dd_parts(tmp_path):
+    from pyjac_tpu.ops import doublefloat as df
+    from pyjac_tpu.ops.pallas_dd import (DDA, PallasDDJacobianSparse,
+                                         _compute_dd, _postcol_stream_spec,
+                                         _stack_expanded_src)
+    jm, jp, m, p = _both(tmp_path, synthetic_mechanism(
+        n_species=6, n_reactions=10, seed=7, gri_mix=True))
+    B = 8
+    pjs = PallasDDJacobianSparse(jp, block_b=8, block_b_cols=8, jb=4,
+                                 fuse_gather=True, interpret=True)
+    y, _, P = random_states(jm, B)
+    y64, P64 = y.astype(np.float64), np.asarray(P, np.float64)
+    yh = y64.T.astype(np.float32)
+    yl = (y64.T - yh.astype(np.float64)).astype(np.float32)
+    ph = P64[None].astype(np.float32)
+    plo = (P64[None] - ph.astype(np.float64)).astype(np.float32)
+    C = {k: jnp.asarray(v) for k, v in pjs.consts.items()}
+    with df.barrier_mode('xla'):
+        parts = _compute_dd(pjs.meta, C, DDA(jnp.asarray(yh),
+                                             jnp.asarray(yl)),
+                            DDA(jnp.asarray(ph), jnp.asarray(plo)))
+        src = _stack_expanded_src(pjs.meta, C, parts)
+
+    def val(x):
+        return np.asarray(x.hi, np.float64) + np.asarray(x.lo, np.float64)
+
+    out = stage_a_reference(p, torch.as_tensor(y64.T.copy()),
+                            torch.as_tensor(P64[None].copy()))
+    sj = SparseJacobian(p)
+    R = p.n_reactions
+    n_vals = (sj.Sf + sj.Sp) * R
+    got_src = out['src'].numpy()
+    ref_src = val(src)
+    assert got_src.shape == ref_src.shape == (pjs.SC['n_src'], B)
+    # per-slot values: elementwise, 1e-12; psi_q rows carry the net rate
+    # (Rf - Rr) and the third-body sum: 1e-9 (the JAX side is 2^-48 dd)
+    assert _row_rel(got_src[:n_vals], ref_src[:n_vals]) < 1e-12
+    assert _row_rel(got_src[n_vals:], ref_src[n_vals:]) < 1e-9
+    assert _row_rel(out['col0'].numpy(), val(parts['col0'])) < 1e-9
+    assert _row_rel(out['f'].numpy(), val(parts['f_out'])) < 1e-9
+    rows = post_rows(p.n_species, p.n_species - 1)
+    summed = ('v_u', 'v_c', 'fkJ', 'fT')
+    names = [nm for nm, _ in _postcol_stream_spec(pjs.meta)]
+    assert sorted(names) == sorted(rows)
+    for nm in names:
+        a, b = rows[nm]
+        err = _row_rel(out['post'][a:b].numpy(), val(parts[nm]))
+        assert err < (1e-9 if nm in summed else 1e-12), (nm, err)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice
+# ---------------------------------------------------------------------------
+
+def test_slice_matches_jax_f64(flagship):
+    """32 flagship golden states: J floored@1e-10 < 1e-10 (what the JAX
+    f64 path is held to against reference C) and dy/dt < 1e-7."""
+    jp, p, g = flagship
+    y, P = g['y'][:32], g['P'][:32]
+    J, f = SparseJacobian(p)(y, P)
+    jJ, jf = jjacobian_and_dydt(jp, 0.0, jnp.asarray(P), jnp.asarray(y))
+    assert J.shape == (32, 53, 53) and f.shape == (32, 53)
+    assert J.dtype == f.dtype == torch.float64
+    assert _floored(J.numpy(), np.asarray(jJ), 1e-10) < 1e-10
+    assert _norm_rel(f.numpy(), np.asarray(jf)) < 1e-7
+
+
+def test_slice_flagship_golden(flagship):
+    """All 128 flagship golden states against pyJac's generated C:
+    J (reference column-major layout) floored@1e-10 < 1e-8, dy/dt
+    norm-relative < 1e-7 (``tests/test_golden_parity.py:255-274``)."""
+    _, p, g = flagship
+    n = len(g['T'])
+    J, f = SparseJacobian(p)(g['y'], g['P'])
+    Jl = J.numpy().transpose(0, 2, 1).reshape(n, -1)
+    assert _floored(Jl, g['ref_jac'], 1e-10) < 1e-8
+    assert _norm_rel(f.numpy(), g['ref_dydt']) < 1e-7
+
+
+def test_slice_synth_golden(synth):
+    """The all-features golden (PLOG, Chebyshev, SRI, chemically
+    activated, fractional nu) through the sparse path — which the JAX
+    sparse path refuses — at ``TestAllFeaturesGolden``'s tolerances."""
+    _, p, g = synth
+    n = len(g['T'])
+    J, f = SparseJacobian(p)(g['y'], g['P'])
+    Jl = J.numpy().transpose(0, 2, 1).reshape(n, -1)
+    assert _floored(Jl, g['ref_jac'], 1e-9) < 1e-8
+    assert _floored(f.numpy(), g['ref_dydt'], 1e-9) < 1e-10
+
+
+@pytest.mark.parametrize('conp', [True, False])
+def test_slice_matches_plain_jacobian(synth, conp):
+    """Sparse and dense plain paths of the port agree, CONP and CONV,
+    on every category."""
+    _, p, g = synth
+    y = torch.as_tensor(g['y'][:32])
+    P = torch.as_tensor(g['P'][:32])
+    J, f = SparseJacobian(p, conp=conp)(y, P)
+    J0, f0 = jacobian_and_dydt(p, 0.0, P, y, conp=conp)
+    assert _floored(J.numpy(), J0.numpy(), 1e-10) < 1e-10
+    assert _norm_rel(f.numpy(), f0.numpy()) < 1e-12
+
+
+def test_chip_smoke_rehearsal_and_no_card(tmp_path):
+    """Without a card ``chip_smoke.py`` fails before printing a result,
+    both from the repository and alone in an empty directory."""
+    import shutil
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present; the smoke runs for real')
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    shutil.copy(repo / 'chip_smoke.py', tmp_path / 'chip_smoke.py')
+    for cwd in (repo, tmp_path):
+        out = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=str(cwd),
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and '"ok"' not in out.stdout, out.stdout
