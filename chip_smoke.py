@@ -1,8 +1,11 @@
 """On-card smoke run of the PyTorch + CUDA port (``pyjac_tpu_torch``).
 
-Drives the port's main path — the flagship 53-species / 325-reaction
-mechanism's analytical Jacobian + dy/dt through ``SparseJacobian`` —
-on one CUDA card, in phases; any failure exits non-zero at once:
+Drives the port's two paths — the flagship 53-species / 325-reaction
+mechanism's analytical Jacobian + dy/dt through ``SparseJacobian``
+(kernels K1, K2), and the large-mechanism pipeline ``BigJacobian``
+(kernels K5, K6, K7) at the 654-species / 2716-reaction and USC-II
+(111 / 784) classes — on one CUDA card, in phases; any failure exits
+non-zero at once:
 
 1. device: a CUDA card is required; prints its ``nvidia-smi`` name and
    power limit;
@@ -15,7 +18,23 @@ on one CUDA card, in phases; any failure exits non-zero at once:
 5. main path: the flagship states tiled to B = 131072 through
    ``SparseJacobian.call_tr`` (one warm-up, best of 3 timed passes with
    CUDA events), with both kernels' launch counters checked, then each
-   stage timed alone against its plain version at the same B.
+   stage timed alone against its plain version at the same B;
+6. big kernels vs plain: K5, K6 and K7 against their plain versions on
+   the same inputs, CONP and CONV, at the shape of each timed path of
+   phase 8 (K5 + K6 at the 654 class, B = 1024, and at the USC-II class,
+   B = 32768; K5 + K7 at the 654 class, B = 512) and on the 9/24
+   all-features synth (PLOG, Chebyshev, SRI, chemically activated,
+   fractional nu; B = 16384);
+7. big golden: both reference-C goldens through ``BigJacobian`` (the
+   default K5 + K6 configuration and the dense K7 one);
+8. big paths at full width, each timed (one warm-up, best of 3 CUDA
+   event passes, a ``torch.sum`` of every output inside the pass) with
+   its launch counters set to 0 just before and read just after: the
+   654-class default configuration at B = 1024 and the USC-II class at
+   B = 32768 (each checked against ``SparseJacobian``), and the dense K7
+   configuration at the 654 class, B = 512; then the stage split and
+   each kernel alone beside its plain version, its bound and one
+   PyTorch library call.
 
 The last three lines of standard output are one JSON object with a
 row per kernel, the ``nvidia-smi`` line, and
@@ -39,9 +58,14 @@ sys.path.insert(0, HERE)
 
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
+from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
+    ROLE_NAMES, BigJacobian, cols_dense_reference, cols_sparse_reference,
+    finish, p1_dense, parts_reference, source_stack, state_thermo)
 from pyjac_tpu_torch.ops.jacobian_sparse import (  # noqa: E402
     SparseJacobian, post_rows, stage_a_reference, stage_b_reference)
-from pyjac_tpu_torch.testers.synthetic import flagship  # noqa: E402
+from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
+    flagship, packed_from_text, plausible_mechanism, random_states,
+    synthetic_mechanism)
 
 F64 = torch.float64
 DATA = os.path.join(HERE, 'tests', 'data')
@@ -64,6 +88,28 @@ TOL_J = 1e-9             # Jacobian columns, floored at 1e-10 of the state
 # golden parity (tests/test_golden_parity.py:255-274)
 TOL_GOLDEN_J = 1e-8
 TOL_GOLDEN_F = 1e-7
+# the large-mechanism pipeline: K5 role rows without a net rate
+# (vals_f/vals_p, c_u, c_1) are elementwise (TOL_ELEMENTWISE, per row);
+# rows that carry a net rate of progress (q, dq_dT, psi_q, xi_q) cancel
+# and are held per row at
+TOL_ROLE_NET = 1e-9
+TOL_BIG_J = 1e-9          # K6/K7 vs plain, J species rows floored at 1e-10
+#                           of the state (its whole J)
+TOL_BIG_JT = 1e-12        # ... and J's temperature row, relative to the
+#                           summed magnitude of the N + 1 terms it adds: the
+#                           terms exceed the row up to 3.2e6-fold at USC-II
+#                           states, so on the floored scale two f64
+#                           summation orders differ by up to 2.2e-8 there
+TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored
+
+# BigJacobian's default configuration is K5 + K6 (split_presmod on);
+# the dense one runs K5 + K7
+BIG_DENSE = dict(sparse_cols=False)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f64 tensor-core
+# rate, for each kernel's bound
+HBM_BYTES_S = 3.35e12
+F64_FLOP_S = 67e12
 
 
 class Fail(Exception):
@@ -95,9 +141,14 @@ def state_rel(a, b):
 def floored(a, b, floor):
     """Per-state floored relative error of (..., B) arrays: entries
     below ``floor`` x the state's largest entry compare on that scale."""
+    return float(floored_err(a, b, floor).max())
+
+
+def floored_err(a, b, floor):
+    """The elementwise errors that :func:`floored` maximises."""
     bmax = b.abs().reshape(-1, b.shape[-1]).amax(dim=0)
     denom = torch.maximum(b.abs(), bmax * floor + 1e-300)
-    return float(((a - b).abs() / denom).max())
+    return (a - b).abs() / denom
 
 
 def flagship_states(B):
@@ -111,6 +162,11 @@ def to_tr(y, P, device):
     P_t = torch.as_tensor(np.asarray(P)[None].copy(), dtype=F64,
                           device=device)
     return y_t, P_t
+
+
+def per_call_ms(fn, n=10):
+    """ms per call of ``fn``: best of 3 runs of ``n`` queued calls."""
+    return best_ms(lambda: [fn() for _ in range(n)]) / n
 
 
 def best_ms(fn, reps=3, warm=1):
@@ -210,24 +266,31 @@ def phase_kernels_vs_plain(sj, packed, device, B, card):
 def phase_golden(sj, device, card):
     """Phase 4: the 128 reference-C golden states through the module."""
     g = np.load(os.path.join(DATA, 'golden_flagship_refc.npz'))
-    J, f = sj(torch.as_tensor(g['y'], device=device),
-              torch.as_tensor(g['P'], device=device))
-    n = len(g['T'])
-    Jl = J.cpu().numpy().transpose(0, 2, 1).reshape(n, -1)
-    ref = g['ref_jac']
-    denom = np.maximum(np.abs(ref),
-                       np.abs(ref).max(-1, keepdims=True) * 1e-10 + 1e-300)
-    errJ = float((np.abs(Jl - ref) / denom).max())
-    fr = g['ref_dydt']
-    errf = float((np.abs(f.cpu().numpy() - fr).max(-1) /
-                  np.abs(fr).max(-1)).max())
+    errJ, errf = golden_errs(sj, g)
     print('phase 4 golden: J floored@1e-10 %.3e (< %.0e), dy/dt norm-rel '
           '%.3e (< %.0e) (%s)' % (errJ, TOL_GOLDEN_J, errf, TOL_GOLDEN_F,
                                   card))
-    check(np.all(np.isfinite(Jl)) and np.all(np.isfinite(f.cpu().numpy())),
-          'golden: non-finite output')
     check(errJ < TOL_GOLDEN_J, 'golden J %.3e' % errJ)
     check(errf < TOL_GOLDEN_F, 'golden dy/dt %.3e' % errf)
+
+
+def golden_errs(mod, g):
+    """(J floored@1e-10, dy/dt norm-relative per state) of ``mod`` on the
+    golden states of ``g`` against its reference-C values, with the
+    Jacobian in the reference's column-major layout."""
+    J, f = mod(torch.as_tensor(g['y'], device=mod.device),
+               torch.as_tensor(g['P'], device=mod.device))
+    n = len(g['T'])
+    Jl = J.cpu().numpy().transpose(0, 2, 1).reshape(n, -1)
+    f = f.cpu().numpy()
+    check(np.all(np.isfinite(Jl)) and np.all(np.isfinite(f)),
+          'golden: non-finite output')
+    ref = g['ref_jac']
+    denom = np.maximum(np.abs(ref),
+                       np.abs(ref).max(-1, keepdims=True) * 1e-10 + 1e-300)
+    fr = g['ref_dydt']
+    return (float((np.abs(Jl - ref) / denom).max()),
+            float((np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max()))
 
 
 def phase_main(sj, packed, device, B, card):
@@ -267,7 +330,394 @@ def phase_main(sj, packed, device, B, card):
     for k in ('stage_a', 'stage_b'):
         print('  %s: kernel %.3f ms, plain version %.3f ms (B=%d, %s)'
               % (k, ms[k], ms[k + '_plain'], B, card))
-    return dict(counts=counts, ms=ms, total_ms=total_ms)
+    J, N = sj.J, sj.N
+    tabs = [t for k, t in sj._buffers.items() if k.startswith('ka_')]
+    bounds = {
+        'stage_a': bound(nbytes(y_t, P_t, *tabs, *a.values())),
+        'stage_b': bound(nbytes(a['src'], a['post'], sj.col_ptr, sj.col_src,
+                                sj.col_coef, sj.inv_mw) + 8 * J * N * B,
+                         2 * len(sj.col_coef) * B + 8 * J * N * B)}
+    return dict(counts=counts, ms=ms, total_ms=total_ms, bounds=bounds)
+
+
+# ---------------------------------------------------------------------------
+# the large-mechanism pipeline
+# ---------------------------------------------------------------------------
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, n_ops=0.0):
+    """(least ms, 'bytes' or 'operations') for moving ``n_bytes`` through
+    HBM once and doing ``n_ops`` f64 operations at the card's peaks."""
+    tb = n_bytes / HBM_BYTES_S * 1e3
+    to = n_ops / F64_FLOP_S * 1e3
+    return (tb, 'bytes') if tb >= to else (to, 'operations')
+
+
+def own_density(packed, y_t, P_t):
+    """Each state's own density (CONV takes density, so the rates stay
+    those of a real state)."""
+    inv_mw = torch.as_tensor(packed.inv_mw, device=y_t.device)
+    Yf = torch.cat([y_t[1:], 1.0 - y_t[1:].sum(0, keepdim=True)])
+    return (P_t / (RU * y_t[:1] * (Yf * inv_mw[:, None]).sum(
+        0, keepdim=True))).contiguous()
+
+
+def big_states(packed, B, device):
+    y, _, P = random_states(packed.mech, B, seed=3)
+    return to_tr(y, P, device)
+
+
+def t_row_gross(mod, roles, post, conp):
+    """(J, B): for each column, the summed magnitude of the terms its
+    temperature row adds (``post_col_reference``'s JTY: the N terms
+    eWn * dcol and the fT term), from the plain contraction ``dcol``."""
+    N, J, B = mod.N, mod.J, roles.shape[-1]
+    if mod.sparse_cols:
+        p1c = mod.assemble_p1c(source_stack(roles, mod.Sf + mod.Sp,
+                                            mod.eff_val))
+        dcol = torch.einsum('jnr,jrb->jnb', mod.ks_nuc,
+                            p1c.view(J, mod.Rmax, B))
+        del p1c
+    else:
+        td = mod.tab('kd_')
+        dcol = torch.stack([td['nu_net'].T @ p1_dense(
+            roles, mod.Sf, mod.Sp, td['spf'], td['spp'], td['eff'],
+            td['pd'], j) for j in range(J)], 0)
+    g = {k: post[a:b] for k, (a, b) in post_rows(N, J).items()}
+    w = mod.inv_mw[:J]
+    u = w - mod.inv_mw[N - 1]
+    d = dcol * w[:, None, None] + g['v_u'][None] * u[:, None, None] + \
+        g['v_c'][None]
+    del dcol
+    r = -(g['mw_avg'] * u[:, None]) if conp else 0.0
+    return ((g['eWn'][None] * d).abs().sum(1) +
+            (g['fT'] * (r + (g['cp'][:J] - g['cp'][N - 1]) *
+                        g['ish'])).abs())
+
+
+def phase_big_kernels(cases, device, card):
+    """Phase 6: K5 and the column kernels of each case (K6 and/or K7)
+    against their plain versions, same inputs; the case marked ``main``
+    for a kernel gives its ``max_abs_err`` (CONP)."""
+    res = {}
+    for name, packed, B, cols, main in cases:
+        y_t, P_t = big_states(packed, B, device)
+        for conp in (True, False):
+            param = P_t if conp else own_density(packed, y_t, P_t)
+            mods = {'K6': BigJacobian(packed, conp=conp, device=device)
+                    if 'K6' in cols else None,
+                    'K7': BigJacobian(packed, conp=conp, device=device,
+                                      **BIG_DENSE) if 'K7' in cols else None}
+            bj = mods['K6'] or mods['K7']
+            st = state_thermo(bj.packed, y_t, param, conp)
+            ref = parts_reference(bj.packed, st, conp)
+            got = bj.parts(st)
+            torch.cuda.synchronize()
+            k = bj.Sf + bj.Sp
+            errs = {
+                'K5 vals': (row_rel(got[:k], ref[:k]), TOL_ELEMENTWISE)}
+            for i, role in enumerate(ROLE_NAMES):
+                tol = (TOL_ELEMENTWISE if role in ('c_u', 'c_1')
+                       else TOL_ROLE_NET)
+                errs['K5 ' + role] = (row_rel(got[k + i], ref[k + i]), tol)
+            maxe = {'big_parts': float((got - ref).abs().max())}
+            del got
+            post = finish(bj.packed, st, ref, conp)['post']
+            tag = '%s %s B=%d' % (name, 'conp' if conp else 'conv', B)
+            for kn, kname in (('K6', 'big_cols_sparse'),
+                              ('K7', 'big_cols_dense')):
+                mod = mods[kn]
+                if mod is None:
+                    continue
+                check(mod.perm is None and bj.perm is None or
+                      np.array_equal(mod.perm, bj.perm),
+                      'permutations differ')
+                got = mod.columns(ref, post)
+                plain = (cols_sparse_reference(
+                    mod.assemble_p1c(source_stack(ref, k, mod.eff_val)),
+                    mod.ks_nuc, mod.inv_mw, post, conp) if kn == 'K6'
+                    else cols_dense_reference(ref, mod.tab('kd_'),
+                                              mod.inv_mw, post, conp))
+                torch.cuda.synchronize()
+                e = floored_err(got, plain, 1e-10)
+                gross = t_row_gross(mod, ref, post, conp)
+                errs[kn + ' J T'] = (float(
+                    ((got[:, 0] - plain[:, 0]).abs() / gross).max()),
+                    TOL_BIG_JT)
+                errs[kn + ' J Y'] = (float(e[:, 1:].max()), TOL_BIG_J)
+                print('  %s %s J T floored@1e-10 %.3e' % (
+                    tag, kn, float(e[:, :1].max())))
+                del e, gross
+                maxe[kname] = float((got - plain).abs().max())
+                del got, plain
+                torch.cuda.empty_cache()
+            for nm, (err, tol) in errs.items():
+                print('  %s %-10s %.3e (<= %.0e)' % (tag, nm, err, tol))
+            for nm, (err, tol) in errs.items():
+                check(err <= tol, '%s %s: %.3e > %.0e' % (tag, nm, err, tol))
+            if conp:
+                res.update({kn: e for kn, e in maxe.items() if kn in main})
+            del ref, post, st, mods, bj
+            torch.cuda.empty_cache()
+    print('phase 6 big kernels vs plain: ok (%s)' % card)
+    return res
+
+
+def phase_big_golden(mechs, device, card):
+    """Phase 7: both reference-C goldens through BigJacobian."""
+    for name, packed in mechs:
+        g = np.load(os.path.join(DATA, 'golden_%s_refc.npz' % name))
+        for cfg, kw in (('sparse', {}), ('dense', BIG_DENSE)):
+            errJ, errf = golden_errs(BigJacobian(packed, device=device, **kw),
+                                     g)
+            print('phase 7 golden %s (%s): J floored@1e-10 %.3e (< %.0e), '
+                  'dy/dt norm-rel %.3e (< %.0e) (%s)' % (
+                      name, cfg, errJ, TOL_GOLDEN_J, errf, TOL_GOLDEN_F,
+                      card))
+            check(errJ < TOL_GOLDEN_J, 'golden %s %s J %.3e' % (name, cfg,
+                                                                errJ))
+            check(errf < TOL_GOLDEN_F, 'golden %s %s dy/dt %.3e'
+                  % (name, cfg, errf))
+
+
+def timed_path(mod, y_t, P_t, need):
+    """One main-path run: counters set to 0, warm-up + best of 3 passes,
+    counters read; checks every kernel in ``need`` launched."""
+    sums = {}
+
+    def one_pass():
+        out = mod.call_tr(y_t, P_t)
+        sums['chk'] = [torch.sum(x) for x in out]
+
+    kernels.reset_launches()
+    ms = best_ms(one_pass, reps=3, warm=1)
+    counts = dict(kernels.launches)
+    chk = [float(c) for c in sums['chk']]
+    check(all(math.isfinite(c) for c in chk), 'non-finite checksum')
+    check(all(counts[k] > 0 for k in need),
+          'main path did not launch %s: %s' % (need, counts))
+    return ms, counts, chk
+
+
+def device_profile(fn, n=3):
+    """Device time by kernel over ``n`` calls of ``fn`` from a
+    ``torch.profiler`` trace: (ms per call of the CUDA-event wall,
+    busy ms per call, [(kernel name, ms per call)] largest first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            rows[ev.name] = rows.get(ev.name, 0.0) + ev.device_time / 1e3 / n
+    busy = sum(rows.values())
+    return (s.elapsed_time(e) / n, busy,
+            sorted(rows.items(), key=lambda kv: -kv[1]))
+
+
+def print_profile(tag, fn, card):
+    """Print the device-time profile of ``fn`` and its stage split: the
+    port's kernels by name, every other kernel (plain torch: pre-stage,
+    finish, assembly) together."""
+    wall, busy, rows = device_profile(fn)
+    if busy <= 0.0:
+        print('  %s profile: no device time in the trace (not measured)'
+              % tag)
+        return
+    print('  %s profile (torch.profiler, 3 passes, %s): pass %.3f ms, '
+          'device busy %.3f ms, idle share %.1f%%; by kernel per pass:'
+          % (tag, card, wall, busy, 100.0 * (1.0 - busy / wall)))
+    for name, ms in rows[:10]:
+        print('    %8.3f ms %5.1f%%  %s' % (ms, 100.0 * ms / busy, name[:90]))
+    print('    %8.3f ms in %d other kernels' % (
+        sum(ms for _, ms in rows[10:]), max(len(rows) - 10, 0)))
+    own = {k: sum(ms for n, ms in rows if k in n)
+           for k in ('big_parts', 'big_cols_sparse', 'big_cols_dense')}
+    print('  %s stage split, device ms per pass: K5 %.3f, K6 %.3f, K7 '
+          '%.3f, plain torch (pre-stage, finish, assembly) %.3f, idle %.3f'
+          % (tag, own['big_parts'], own['big_cols_sparse'],
+             own['big_cols_dense'], busy - sum(own.values()), wall - busy))
+
+
+def full_J(cols, col0):
+    return torch.cat([col0[None], cols], 0)
+
+
+def dense_bound(bd, roles, post, B):
+    """K7's bound from this run's tables: its inputs read once and its
+    output written once, and the nonzero products the function needs
+    (per column, the reactions whose operand is nonzero there times the
+    nonzero nu_net entries of each).  Also returns the dense
+    contraction's floor, 2 J N R B operations, which the kernel does."""
+    td = bd.tab('kd_')
+    J, N, R = bd.J, bd.N, bd.R
+    cols = torch.arange(J, device=roles.device)
+    part = ((td['spf'][:, :, None] == cols).any(1) |
+            (td['spp'][:, :, None] == cols).any(1) |
+            (td['eff'][:, :J] != 0) | (td['pd'][:, None] == cols))
+    nnz = (td['nu_net'] != 0).sum(1)
+    products = float((part.double() * nnz[:, None]).sum()) * B
+    b = bound(nbytes(roles[:bd.Sf + bd.Sp], roles[-2:], post, *td.values(),
+                     bd.inv_mw) + 8 * J * N * B, 2.0 * products)
+    return b, 2.0 * products, bound(0, 2.0 * J * N * R * B)[0]
+
+
+def phase_big_main(mechs, sizes, device, card):
+    """Phase 8: the large-mechanism paths at full width, ``sizes`` the
+    batch of each path."""
+    p654, p_usc = mechs['654'], mechs['usc']
+    res = {'ms': {}}
+    k = res['ms']
+    # --- a. the 654-class default configuration at B = 1024 ----------------
+    B = sizes['654']
+    y_t, P_t = big_states(p654, B, device)
+    bj = BigJacobian(p654, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, counts, chk = timed_path(bj, y_t, P_t,
+                                 ('big_parts', 'big_cols_sparse'))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    res['counts_654'] = counts
+    print('phase 8a 654-class default path: B=%d, best of 3 %.3f ms = %.0f '
+          'evals/s, checksums %s, peak %.2f GiB, launches %s, split r1=%s '
+          '(%s)' % (B, ms, B / (ms * 1e-3), ['%.6e' % c for c in chk], peak,
+                    counts, bj.split_r1, card))
+    print_profile('654 default path', lambda: bj.call_tr(y_t, P_t), card)
+    cols, col0, f = bj.call_tr(y_t, P_t)
+    J1 = full_J(cols, col0)
+    del cols
+    sj = SparseJacobian(p654, device=device)
+    cs, cs0, fs = sj.call_tr(y_t, P_t)
+    ex = floored(full_J(cs, cs0), J1, 1e-10)
+    exf = state_rel(fs[1:], f[1:])
+    del cs
+    print('  654 vs SparseJacobian (K1/K2): J floored %.3e (<= %.0e), dy/dt '
+          'species per state %.3e' % (ex, TOL_CROSS, exf))
+    check(ex <= TOL_CROSS, 'BigJacobian vs SparseJacobian J %.3e' % ex)
+    del J1, sj
+    torch.cuda.empty_cache()
+
+    # stage split and each kernel alone at this shape
+    st = state_thermo(bj.packed, y_t, P_t, True)
+    roles = bj.parts(st)
+    post = finish(bj.packed, st, roles, True)['post']
+    p1c = bj.assemble_p1c(source_stack(roles, bj.Sf + bj.Sp, bj.eff_val))
+
+    def front():
+        s2 = state_thermo(bj.packed, y_t, P_t, True)
+        r2 = bj.parts(s2)
+        finish(bj.packed, s2, r2, True)
+        bj.assemble_p1c(source_stack(r2, bj.Sf + bj.Sp, bj.eff_val))
+
+    k['front'] = per_call_ms(front)
+    k['big_cols_sparse'] = per_call_ms(
+        lambda: kernels.big_cols_sparse(bj, p1c, post))
+    k['big_parts'] = per_call_ms(lambda: bj.parts(st))
+    k['big_parts_plain'] = best_ms(
+        lambda: parts_reference(bj.packed, st, True), reps=2)
+    k['big_cols_sparse_plain'] = best_ms(
+        lambda: cols_sparse_reference(p1c, bj.ks_nuc, bj.inv_mw, post,
+                                      True), reps=2)
+    p1c3 = p1c.view(bj.J, bj.Rmax, B)
+    k['big_cols_sparse_lib'] = per_call_ms(lambda: torch.bmm(bj.ks_nuc,
+                                                             p1c3))
+    print('  stage split, CUDA events over 10 queued calls each (B=%d): '
+          'pre-stage + K5 + finish + assembly %.3f ms, column kernel K6 '
+          '%.3f ms (%s)' % (B, k['front'], k['big_cols_sparse'], card))
+    tabs = [v for n, v in bj._buffers.items() if n.startswith('kp_')]
+    res['bounds'] = {
+        'big_parts': bound(nbytes(st['rows'], *tabs, roles)),
+        'big_cols_sparse': bound(
+            nbytes(p1c, post, bj.ks_ptr, bj.ks_src, bj.ks_coef, bj.inv_mw) +
+            8 * bj.J * bj.N * B,
+            2 * bj.ks_coef.numel() * B + 8 * bj.J * bj.N * B)}
+    del st, roles, post, p1c, p1c3
+    torch.cuda.empty_cache()
+
+    # --- b. the USC-II class at B = 32768 ------------------------------------
+    Bu = sizes['usc']
+    yu, Pu = big_states(p_usc, Bu, device)
+    bu = BigJacobian(p_usc, device=device)
+    msu, cu, chku = timed_path(bu, yu, Pu, ('big_parts', 'big_cols_sparse'))
+    res['counts_usc'] = cu
+    print('phase 8b USC-II class default path: B=%d, best of 3 %.3f ms = '
+          '%.0f evals/s, checksums %s, launches %s (%s)' % (
+              Bu, msu, Bu / (msu * 1e-3), ['%.6e' % c for c in chku], cu,
+              card))
+    print_profile('USC-II default path', lambda: bu.call_tr(yu, Pu), card)
+    cols, col0, _ = bu.call_tr(yu, Pu)
+    Ju = full_J(cols, col0)
+    del cols
+    cs, cs0, _ = SparseJacobian(p_usc, device=device).call_tr(yu, Pu)
+    exu = floored(full_J(cs, cs0), Ju, 1e-10)
+    del cs, Ju
+    print('  USC-II vs SparseJacobian (K1/K2): J floored %.3e (<= %.0e)'
+          % (exu, TOL_CROSS))
+    check(exu <= TOL_CROSS, 'USC-II vs SparseJacobian J %.3e' % exu)
+    del yu, Pu, bu
+    torch.cuda.empty_cache()
+
+    # --- c. the dense K7 configuration at the 654 class, B = 512 ----------
+    Bd = sizes['654_dense']
+    yd, Pd = y_t[:, :Bd].contiguous(), P_t[:, :Bd].contiguous()
+    bd = BigJacobian(p654, device=device, **BIG_DENSE)
+    msd, cd, chkd = timed_path(bd, yd, Pd, ('big_parts', 'big_cols_dense'))
+    res['counts_654_dense'] = cd
+    cols, col0, _ = bd.call_tr(yd, Pd)
+    cs, cs0, _ = bj.call_tr(yd, Pd)
+    exd = floored(full_J(cols, col0), full_J(cs, cs0), 1e-10)
+    del cols, cs
+    print('phase 8c 654-class dense K7 path: B=%d, best of 3 %.3f ms = %.0f '
+          'evals/s, checksums %s, launches %s; vs the default path J floored '
+          '%.3e (<= %.0e) (%s)' % (Bd, msd, Bd / (msd * 1e-3),
+                                   ['%.6e' % c for c in chkd], cd, exd,
+                                   TOL_CROSS, card))
+    check(exd <= TOL_CROSS, 'dense vs sparse J %.3e' % exd)
+    st = state_thermo(bd.packed, yd, Pd, True)
+    roles = bd.parts(st)
+    post = finish(bd.packed, st, roles, True)['post']
+    td = bd.tab('kd_')
+    k['big_cols_dense'] = best_ms(lambda: bd.columns(roles, post))
+    k['big_cols_dense_plain'] = best_ms(
+        lambda: cols_dense_reference(roles, td, bd.inv_mw, post, True),
+        reps=2)
+    J_, R_ = bd.J, bd.R
+    P_all = torch.empty((R_, J_ * Bd), dtype=F64, device=device)
+    for j in range(J_):
+        P_all[:, j * Bd:(j + 1) * Bd] = p1_dense(
+            roles, bd.Sf, bd.Sp, td['spf'], td['spp'], td['eff'], td['pd'],
+            j)
+    nuT = td['nu_net'].T.contiguous()
+    k['big_cols_dense_lib'] = best_ms(lambda: torch.matmul(nuT, P_all))
+    res['bounds']['big_cols_dense'], ops7, dense7 = dense_bound(
+        bd, roles, post, Bd)
+    print('  K7 bound counts %.4e nonzero-product operations; the dense '
+          'contraction the kernel does (2 J N R B = %.4e) has a floor of '
+          '%.3f ms at the f64 tensor-core peak' % (
+              ops7, 2.0 * J_ * bd.N * R_ * Bd, dense7))
+    del st, roles, post, P_all
+    torch.cuda.empty_cache()
+    for nm, shape in (('big_parts', 'B=%d' % B),
+                      ('big_cols_sparse', 'B=%d' % B),
+                      ('big_cols_dense', 'B=%d' % Bd)):
+        print('  %s: kernel %.3f ms, plain version %.3f ms, library call %s '
+              'ms, bound %.3f ms (%s) (654 class, %s, %s)' % (
+                  nm, k[nm], k[nm + '_plain'],
+                  '%.3f' % k[nm + '_lib'] if nm + '_lib' in k else 'none',
+                  res['bounds'][nm][0], res['bounds'][nm][1], shape, card))
+    return res
 
 
 def main():
@@ -290,17 +740,48 @@ def main():
     errs = phase_kernels_vs_plain(sj, packed, device, 16384, card)
     phase_golden(sj, device, card)
     main_res = phase_main(sj, packed, device, 131072, card)
+    del sj
+    torch.cuda.empty_cache()
+
+    p654 = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
+    p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
+    p_syn = packed_from_text(synthetic_mechanism(9, 24, seed=7))[1]
+    # batch of each phase-8 path; phase 6 checks the kernels at each
+    sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
+    errs.update(phase_big_kernels((
+        ('654', p654, sizes['654'], ('K6',),
+         ('big_parts', 'big_cols_sparse')),
+        ('654', p654, sizes['654_dense'], ('K7',), ('big_cols_dense',)),
+        ('usc', p_usc, sizes['usc'], ('K6',), ()),
+        ('synth', p_syn, 16384, ('K6', 'K7'), ())), device, card))
+    phase_big_golden((('flagship', packed), ('synth', p_syn)), device, card)
+    big = phase_big_main({'654': p654, 'usc': p_usc}, sizes, device, card)
 
     rows = []
     for name, src, line in (
-            ('stage_a', 'pyjac_tpu_torch/csrc/sparse_stage_a.cu',
-             'pyjac_tpu/ops/pallas_dd.py:2099'),
-            ('stage_b', 'pyjac_tpu_torch/csrc/sparse_stage_b.cu',
-             'pyjac_tpu/ops/pallas_dd.py:2204')):
-        rows.append(dict(name=name, route='cuda', source=src, replaces=line,
-                         launches=main_res['counts'][name],
-                         max_abs_err=errs[name], ms=main_res['ms'][name],
-                         plain_ms=main_res['ms'][name + '_plain']))
+            ('stage_a', 'sparse_stage_a.cu', 'pallas_dd.py:2099'),
+            ('stage_b', 'sparse_stage_b.cu', 'pallas_dd.py:2204'),
+            ('big_parts', 'big_parts.cu', 'pallas_dd.py:2747'),
+            ('big_cols_sparse', 'big_cols_sparse.cu', 'pallas_dd.py:2785'),
+            ('big_cols_dense', 'big_cols_dense.cu', 'pallas_dd.py:2669')):
+        # launches: the run of the path at whose shape the kernel is
+        # timed; launches_by_path: every path's run
+        if name.startswith('stage'):
+            r, by_path = main_res, {'flagship': main_res['counts'][name]}
+            main_path = 'flagship'
+        else:
+            r = big
+            by_path = {p: big['counts_' + p][name]
+                       for p in ('654', 'usc', '654_dense')}
+            main_path = '654_dense' if name == 'big_cols_dense' else '654'
+        b_ms, b_by = r['bounds'][name]
+        rows.append(dict(
+            name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
+            replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
+            max_abs_err=errs[name], ms=r['ms'][name],
+            plain_ms=r['ms'][name + '_plain'], bound_ms=b_ms, bound_by=b_by,
+            library_ms=r['ms'].get(name + '_lib'),
+            launches_by_path=by_path))
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -15,10 +15,14 @@ Quick start::
     f = pjt.dydt(packed, 0.0, pressure, y)            # (..., N)
     J = pjt.eval_jacobian(packed, 0.0, pressure, y)   # (..., N, N)
 
-    # the compressed sparse pipeline; on a CUDA device it runs the
-    # hand-written kernels of pyjac_tpu_torch/csrc
-    sj = pjt.SparseJacobian(packed, device='cuda')
+    # the compressed sparse pipeline and the large-mechanism pipeline;
+    # they run on the CUDA card (the hand-written kernels of
+    # pyjac_tpu_torch/csrc) unless device='cpu' asks for the plain
+    # versions
+    sj = pjt.SparseJacobian(packed)
     J, f = sj(y_batch, P_batch)                       # (B, N, N), (B, N)
+    bj = pjt.BigJacobian(packed)        # K5 + K6; sparse_cols=False: K7
+    J, f = bj(y_batch, P_batch)
 """
 
 from .core.chemkin import MechanismError, read_mech, read_thermo
@@ -28,6 +32,7 @@ from .core.pack import PackedMechanism, pack, packed_from_arrays
 from .ops.dydt import dydt, dydt_conp, dydt_conv, split_state
 from .ops.jacobian import (eval_jacobian, jacobian_and_dydt, jacobian_fwd,
                            jacobian_vector_product)
+from .ops.jacobian_big import BigJacobian
 from .ops.jacobian_sparse import SparseJacobian
 from .ops.rates import (compact_pres_mod, compact_rev, eval_kc, eval_kf,
                         eval_rxn_rates, eval_spec_rates, get_rxn_pres_mod,
@@ -38,8 +43,8 @@ from .ops.thermo import (eval_conc, eval_conc_rho, eval_cp, eval_cv,
 __version__ = '0.1.0'
 
 __all__ = [
-    'Mechanism', 'MechanismError', 'PackedMechanism', 'Reaction',
-    'SparseJacobian', 'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
+    'BigJacobian', 'Mechanism', 'MechanismError', 'PackedMechanism',
+    'Reaction', 'SparseJacobian', 'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
     'dydt_conp', 'dydt_conv', 'eval_conc', 'eval_conc_rho', 'eval_cp',
     'eval_cv', 'eval_h', 'eval_jacobian', 'eval_kc', 'eval_kf',
     'eval_rxn_rates', 'eval_smh', 'eval_spec_rates', 'eval_u',

@@ -68,6 +68,18 @@ def to_device(packed, device) -> SimpleNamespace:
     return cached(packed, ('tables', str(device)), build)
 
 
+def entry_device(device='cuda') -> torch.device:
+    """The device of an entry point: the CUDA card unless the caller
+    asks for another (``device='cpu'`` runs the kernels' plain
+    versions).  Raises when a CUDA device is asked for and none is
+    present."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available; pass '
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def as_f64(x, device=None) -> torch.Tensor:
     """``x`` (tensor, array or scalar) as a float64 tensor."""
     if isinstance(x, torch.Tensor):

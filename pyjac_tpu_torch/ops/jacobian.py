@@ -203,14 +203,19 @@ def reaction_parts(packed, param, y, conp: bool = True) -> dict:
     ``c_1``, ``psi``, ``xi``, plus the slot derivatives ``dpf`` /
     ``dpr`` (..., R, Sf/Sp) of the concentration products.
     """
-    t = to_device(packed, y.device)
-    N = packed.n_species
+    return reaction_parts_at(packed, state_quantities(packed, param, y, conp),
+                             conp)
+
+
+def state_quantities(packed, param, y, conp: bool = True) -> dict:
+    """The per-state section of :func:`reaction_parts` (nothing
+    per-reaction): ``T``, ``logT``, ``pres``, ``rho``, ``mw_avg``,
+    ``y_full``, ``conc``, ``dlnrho_dT``, ``dlnP_dT`` and, for a
+    reversible mechanism, ``smh`` and ``dsmh`` (..., N)."""
+    inv_mw = to_device(packed, y.device).inv_mw
     T = y[..., 0]
     Y = y[..., 1:]
     logT = torch.log(T)
-    inv_mw = t.inv_mw
-
-    # --- state, concentrations, regime scalars -----------------------------
     y_N = 1.0 - torch.sum(Y, dim=-1)
     mw_avg = 1.0 / (torch.sum(Y * inv_mw[:-1], dim=-1) + y_N * inv_mw[-1])
     if conp:
@@ -225,16 +230,31 @@ def reaction_parts(packed, param, y, conp: bool = True) -> dict:
         dlnP_dT = 1.0 / T
     y_full = torch.cat([Y, y_N[..., None]], dim=-1)
     conc = rho[..., None] * y_full * inv_mw
+    s = dict(T=T, logT=logT, pres=pres, rho=rho, mw_avg=mw_avg,
+             y_full=y_full, conc=conc, dlnrho_dT=dlnrho_dT, dlnP_dT=dlnP_dT)
+    if packed.has_rev:
+        s.update(smh=eval_smh(packed, T), dsmh=eval_dsmh_dT(packed, T))
+    return s
+
+
+def reaction_parts_at(packed, s: dict, conp: bool = True) -> dict:
+    """The per-reaction section of :func:`reaction_parts` on the state
+    quantities ``s`` of :func:`state_quantities` (any tensors of those
+    shapes, e.g. batch-major views of a batch-minor pre-stage)."""
+    t = to_device(packed, s['T'].device)
+    N = packed.n_species
+    inv_mw = t.inv_mw
+    T, logT, pres, rho = s['T'], s['logT'], s['pres'], s['rho']
+    mw_avg, conc = s['mw_avg'], s['conc']
+    dlnrho_dT, dlnP_dT = s['dlnrho_dT'], s['dlnP_dT']
 
     # --- forward/reverse rate constants and their log-derivatives ----------
     kf, dlnkf_dT, aP = _kf_with_derivs(packed, T, logT, pres)
     if packed.has_rev:
-        smh = eval_smh(packed, T)
-        lnKc = (torch.einsum('...n,rn->...r', smh, t.nu_net) +
+        lnKc = (torch.einsum('...n,rn->...r', s['smh'], t.nu_net) +
                 t.sum_nu * (_LN_PA_RU - logT)[..., None])
         kr = torch.where(t.rev_mask, kf * torch.exp(-lnKc), 0.0)
-        dlnKc_dT = (torch.einsum('...n,rn->...r', eval_dsmh_dT(packed, T),
-                                 t.nu_net) -
+        dlnKc_dT = (torch.einsum('...n,rn->...r', s['dsmh'], t.nu_net) -
                     t.sum_nu / T[..., None])
         dlnkr_dT = dlnkf_dT - dlnKc_dT
     else:
@@ -414,9 +434,7 @@ def reaction_parts(packed, param, y, conp: bool = True) -> dict:
               torch.sum(torch.where(t.prod_sp == N - 1, kdr, 0.0), dim=-1))
     c_1 = -pm * rho[..., None] * inv_mw[-1] * D_last
 
-    return dict(T=T, rho=rho, pres=pres, mw_avg=mw_avg, y_full=y_full,
-                conc=conc, dlnrho_dT=dlnrho_dT, dlnP_dT=dlnP_dT,
-                kf=kf, kr=kr, dpf=dpf, dpr=dpr, Rf=Rf, Rr=Rr, pm=pm,
+    return dict(s, kf=kf, kr=kr, dpf=dpf, dpr=dpr, Rf=Rf, Rr=Rr, pm=pm,
                 qnet=qnet, q=q, dq_dT=dq_dT, c_u=c_u, c_1=c_1, psi=psi,
                 xi=xi)
 

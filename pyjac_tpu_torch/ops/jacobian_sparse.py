@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import F64, as_f64, to_device
+from .common import F64, as_f64, entry_device, to_device
 from .jacobian import heat_terms, reaction_parts
 
 # largest reactant / product slot count the stage-A kernel unrolls
@@ -93,10 +93,27 @@ def column_tables(packed) -> dict:
     """
     N, R = packed.n_species, packed.n_reactions
     J = N - 1
+    rl = column_roles(packed)
+    n_src, roles = rl['n_src'], rl['roles']
+    Rmax = max(8, -(-max(len(x) for x in roles) // 8) * 8)
+    gidx, nuc = role_tables(packed, roles, J, Rmax, n_src - 1)
+    ptr, rows, coef = column_csr(nuc, gidx)
+    return dict(N=N, R=R, J=J, Sf=rl['Sf'], Sp=rl['Sp'], S_eff=rl['S_eff'],
+                n_src=n_src, Rmax=Rmax, gidx=gidx, nuc=nuc,
+                eff_val=rl['eff_val'], **finish_coefs(packed),
+                col_ptr=ptr, col_src=rows, col_coef=coef)
+
+
+def column_roles(packed) -> dict:
+    """Per reduced-species column j, its role list ``roles[j]`` of
+    (source row, reaction, sign) in the TPU tables' order, with the
+    source-stack geometry (``Sf``, ``Sp``, ``S_eff``, ``eff_val``,
+    ``n_src``)."""
+    N, R = packed.n_species, packed.n_reactions
+    J = N - 1
     Sf, Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
     reac_sp, prod_sp = np.asarray(packed.reac_sp), np.asarray(packed.prod_sp)
     reac_nu, prod_nu = np.asarray(packed.reac_nu), np.asarray(packed.prod_nu)
-    nu_net = np.asarray(packed.nu_net, np.float64)
     S_eff, eff_idx, eff_val = eff_slots(packed)
     pd = np.asarray(packed.pdep_sp_idx)
 
@@ -117,31 +134,35 @@ def column_tables(packed) -> dict:
                                                  1.0))
         for r in np.nonzero((pd >= 0) & (pd < J))[0]:
             roles[pd[r]].append(((Sf + Sp + S_eff) * R + r, r, 1.0))
+    return dict(roles=roles, Sf=Sf, Sp=Sp, S_eff=S_eff, eff_val=eff_val,
+                n_src=(Sf + Sp + S_eff + 1) * R + 1)
 
-    n_src = (Sf + Sp + S_eff + 1) * R + 1
-    zero_row = n_src - 1
-    Rmax = max(8, -(-max(len(x) for x in roles) // 8) * 8)
-    gidx = np.full((J, Rmax), zero_row, np.int64)
-    nuc = np.zeros((J, N, Rmax))
-    for j in range(J):
-        for i, (src, r, sign) in enumerate(roles[j]):
+
+def role_tables(packed, roles, n_rows: int, Rmax: int, zero_row: int):
+    """``gidx`` (n_rows, Rmax) source rows and ``nuc`` (n_rows, N, Rmax)
+    signed f64 stoichiometry of the role lists; rows past ``roles`` and
+    slots past a list's end are the zero row with zero coefficients."""
+    nu_net = np.asarray(packed.nu_net, np.float64)
+    gidx = np.full((n_rows, Rmax), zero_row, np.int64)
+    nuc = np.zeros((n_rows, packed.n_species, Rmax))
+    for j, rl in enumerate(roles):
+        for i, (src, r, sign) in enumerate(rl):
             gidx[j, i] = src
             nuc[j, :, i] = sign * nu_net[r, :]
+    return gidx, nuc
 
-    ptr, rows, coef = [0], [], []
-    for j in range(J):
-        for n in range(N):
-            nz = np.nonzero(nuc[j, n])[0]
-            rows.extend(gidx[j, nz].tolist())
-            coef.extend(nuc[j, n, nz].tolist())
-            ptr.append(len(rows))
 
-    return dict(N=N, R=R, J=J, Sf=Sf, Sp=Sp, S_eff=S_eff, n_src=n_src,
-                Rmax=Rmax, gidx=gidx, nuc=nuc, eff_val=eff_val,
-                **finish_coefs(packed),
-                col_ptr=np.asarray(ptr, np.int32),
-                col_src=np.asarray(rows, np.int32),
-                col_coef=np.asarray(coef, np.float64))
+def column_csr(nuc, rows):
+    """CSR over (column, species row) of the nonzeros of ``nuc`` (C, N,
+    Rmax): ``ptr`` (C*N + 1,) int32, the operand row ``rows[c, i]`` of
+    each nonzero (int32) and its coefficient (float64)."""
+    C, N, _ = nuc.shape
+    c, n, i = np.nonzero(nuc)            # row-major: (c, n) groups ascend
+    ptr = np.zeros(C * N + 1, np.int64)
+    np.add.at(ptr, c * N + n + 1, 1)
+    return (np.cumsum(ptr).astype(np.int32),
+            np.asarray(rows)[c, i].astype(np.int32),
+            nuc[c, n, i].astype(np.float64))
 
 
 def finish_coefs(packed) -> dict:
@@ -258,10 +279,8 @@ def stage_a_reference(packed, y_t, P_t, conp: bool = True) -> dict:
     Covers every reaction category through
     :func:`~pyjac_tpu_torch.ops.jacobian.reaction_parts`.
     """
-    J = packed.n_species - 1
     dev = y_t.device
     S_eff, _, eff_val = eff_slots(packed)
-    last = finish_coefs(packed)
     p = reaction_parts(packed, P_t[0], y_t.T, conp=conp)
     T, rho, y_full = p['T'], p['rho'], p['y_full']
     B = T.shape[0]
@@ -280,8 +299,22 @@ def stage_a_reference(packed, y_t, P_t, conp: bool = True) -> dict:
                 else torch.zeros_like(psi_q))
     src = torch.cat([torch.stack(rows, 0).transpose(1, 2).reshape(-1, B),
                      torch.zeros((1, B), dtype=F64, device=dev)], 0)
+    out = finish_rows(packed, p, psi_q, xi_q, heat_terms(packed, T, conp))
+    return dict(src=src.contiguous(), **out)
 
-    # --- stoichiometric contractions and thermodynamic closure ------------
+
+def finish_rows(packed, p, psi_q, xi_q, heat) -> dict:
+    """Stoichiometric contractions and thermodynamic closure
+    (``_finish_dd``), batch-major: from the state quantities of ``p``
+    (``T``, ``rho``, ``mw_avg``, ``y_full``, ``dlnrho_dT``; (B,) or
+    (B, N)), its per-reaction ``q``, ``dq_dT``, ``c_u``, ``c_1`` and
+    ``psi_q``, ``xi_q`` (B, R), and ``heat`` = (cp or cv, h or u,
+    dcp/dT) (B, N).  Returns ``col0`` and ``f`` (N, B) and the ``post``
+    rows (n_post, B), batch-minor and contiguous."""
+    J = packed.n_species - 1
+    T, rho, y_full = p['T'], p['rho'], p['y_full']
+    dev = T.device
+    last = finish_coefs(packed)
     tb = to_device(packed, dev)
     mw, nu_net = tb.mw, tb.nu_net
     omega = p['q'] @ nu_net                                      # (B, N)
@@ -293,7 +326,7 @@ def stage_a_reference(packed, y_t, P_t, conp: bool = True) -> dict:
         if packed.has_specific_pdep_sp:
             cv = cv + xi_q * torch.as_tensor(last['pd_last'], device=dev)
     v_c = cv @ nu_net
-    cp, e_spec, dcp = heat_terms(packed, T, conp)
+    cp, e_spec, dcp = heat
     sh = torch.sum(cp * y_full, dim=-1)
     dsh_dT = torch.sum(dcp * y_full, dim=-1)
     rho_inv = 1.0 / rho
@@ -312,8 +345,8 @@ def stage_a_reference(packed, y_t, P_t, conp: bool = True) -> dict:
     post = torch.cat([v_u, v_c, eWn, cp, fk[:, :J],
                       mw[:J] * rho_inv[:, None], (1.0 / sh)[:, None],
                       p['mw_avg'][:, None], fT[:, None]], 1).T
-    return dict(src=src.contiguous(), col0=col0.contiguous(),
-                f=f.contiguous(), post=post.contiguous())
+    return dict(col0=col0.contiguous(), f=f.contiguous(),
+                post=post.contiguous())
 
 
 def stage_b_reference(gidx, nuc, inv_mw, src, post, conp: bool = True):
@@ -325,20 +358,33 @@ def stage_b_reference(gidx, nuc, inv_mw, src, post, conp: bool = True):
     (J, N, B): ``out[j, 0]`` is d(dT/dt)/dY_j and ``out[j, 1 + k]`` is
     d(dY_k/dt)/dY_j.
     """
-    J, N, _ = nuc.shape
-    rows = post_rows(N, J)
-    g = {k: post[a:b] for k, (a, b) in rows.items()}
-    u = inv_mw[:J] - inv_mw[N - 1]                                 # (J,)
+    J = nuc.shape[0]
     p1 = src[gidx]                                          # (J, Rmax, B)
-    dcol = torch.einsum('jnr,jrb->jnb', nuc, p1) * inv_mw[:J, None, None]
+    dcol = torch.einsum('jnr,jrb->jnb', nuc, p1)
+    return post_col_reference(dcol, torch.arange(J, device=src.device),
+                              inv_mw, post, conp)
+
+
+def post_col_reference(dcol, cols, inv_mw, post, conp: bool = True):
+    """``_post_col`` on the raw contractions ``dcol`` (C, N, B) of the
+    Jacobian columns ``cols`` (C,) (reduced-species indices): the 1/W_j
+    scale, the rank-one terms and the temperature row.  Returns (C, N, B)
+    with row 0 the temperature row."""
+    N = dcol.shape[1]
+    J = N - 1
+    g = {k: post[a:b] for k, (a, b) in post_rows(N, J).items()}
+    w = inv_mw[cols]
+    u = w - inv_mw[N - 1]                                          # (C,)
+    dcol = dcol * w[:, None, None]
     dcol = dcol + g['v_u'][None] * u[:, None, None] + g['v_c'][None]
     if conp:
-        r = -(g['mw_avg'] * u[:, None])                             # (J, B)
+        r = -(g['mw_avg'] * u[:, None])                             # (C, B)
     else:
-        r = torch.zeros((J, src.shape[1]), dtype=F64, device=src.device)
+        r = torch.zeros((len(cols), post.shape[1]), dtype=F64,
+                        device=post.device)
     JYY = g['mr'][None] * dcol[:, :J] - g['fkJ'][None] * r[:, None, :]
     JTY = (-torch.sum(g['eWn'][None] * dcol, dim=1) -
-           g['fT'] * (r + (g['cp'][:J] - g['cp'][N - 1]) * g['ish']))
+           g['fT'] * (r + (g['cp'][cols] - g['cp'][N - 1]) * g['ish']))
     return torch.cat([JTY[:, None], JYY], 1)
 
 
@@ -358,8 +404,9 @@ class SparseJacobian(nn.Module):
     (:func:`kernel_unsupported`).
     """
 
-    def __init__(self, packed, conp: bool = True, device=None):
+    def __init__(self, packed, conp: bool = True, device='cuda'):
         super().__init__()
+        device = entry_device(device)
         self.packed = packed
         self.conp = bool(conp)
         ct = column_tables(packed)
@@ -376,8 +423,7 @@ class SparseJacobian(nn.Module):
             self.register_buffer(name, torch.as_tensor(ct[name]))
         for name, arr in stage_a_tables(packed, ct).items():
             self.register_buffer('ka_' + name, torch.as_tensor(arr))
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     @property
     def device(self) -> torch.device:

@@ -1,18 +1,21 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
 The sources live in ``pyjac_tpu_torch/csrc/``; :func:`load` compiles
-them with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, at first use, into ``build/kernels/`` beside the package
-(override with ``PYJAC_TORCH_BUILD_DIR``), and loads it with
-``ctypes``.  The library name carries a hash of the sources and flags,
-so an edited source is rebuilt and a finished build is reused.
+them with ``nvcc`` for ``sm_90a`` (one process per source, all at
+once) and links them into a shared library with a plain C interface,
+at first use, into ``build/kernels/`` beside the package (override
+with ``PYJAC_TORCH_BUILD_DIR``), and loads it with ``ctypes``.  The
+library name carries a hash of the sources and flags, so an edited
+source is rebuilt and a finished build is reused.
 
 Nothing here is imported or built when the package is imported: the
 first CUDA launch builds.  Each launcher checks device, dtype, shape
-and contiguity, allocates its outputs and scratch with ``torch.empty``,
-launches on the current CUDA stream, raises if the C entry returns a
-non-zero ``cudaError_t``, and adds one to ``launches[name]``.  There is
-no fallback: a launcher given anything but CUDA tensors raises.
+and contiguity, allocates its outputs and scratch with ``torch.empty``
+(K5 fills a part of an array its caller allocated: each of the two
+reaction ranges of a split), launches
+on the current CUDA stream, raises if the C entry returns a non-zero
+``cudaError_t``, and adds one to ``launches[name]``.  There is no
+fallback: a launcher given anything but CUDA tensors raises.
 """
 
 from __future__ import annotations
@@ -30,17 +33,18 @@ import torch
 from .common import F64
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
-SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu')
+SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
+           'big_cols_sparse.cu', 'big_cols_dense.cu')
+ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # -fmad=false: no multiply-add contraction, so each kernel operation
 # rounds like the plain version's separate torch ops (near equilibrium
-# dy/dt magnifies an ulp of ln Kc ~1e9-fold); the kernels are bound by
-# memory traffic, not by flops
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
+# dy/dt magnifies an ulp of ln Kc ~1e9-fold)
+NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
+                     '-fPIC', '-Xptxas', '-v')
 
 # plain launch counters: one per kernel, bumped where it launches
-launches = {'stage_a': 0, 'stage_b': 0}
+launches = {'stage_a': 0, 'stage_b': 0, 'big_parts': 0,
+            'big_cols_sparse': 0, 'big_cols_dense': 0}
 
 # what the last build did: seconds, library path, nvcc's output
 build_info = {}
@@ -76,8 +80,26 @@ def _nvcc() -> str:
                        'source at first use')
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise on the first that fails."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    logs, failed = [], None
+    for c, p in procs:
+        out = p.communicate()[0]
+        logs.append(out)
+        if p.returncode != 0 and failed is None:
+            failed = 'nvcc failed (%d):\n%s\n%s' % (p.returncode,
+                                                   ' '.join(c), out)
+    if failed:
+        raise RuntimeError(failed)
+    return ''.join(logs)
+
+
 def load():
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use: one nvcc per
+    source, all started together, then one link."""
     global _lib
     if _lib is not None:
         return _lib
@@ -85,19 +107,23 @@ def load():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(s.read_bytes())
-    out = build_dir() / ('libpyjac_sparse_%s.so' % h.hexdigest()[:16])
+    tag = h.hexdigest()[:16]
+    out = build_dir() / ('libpyjac_kernels_%s.so' % tag)
     t0 = time.perf_counter()
     log = ''
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        objs = [out.parent / ('%s_%s_%d.o' % (s.stem, tag, os.getpid()))
+                for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(s)]
+                        for s, o in zip(srcs, objs)])
         tmp = out.with_suffix('.so.tmp%d' % os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError('nvcc failed (%d):\n%s\n%s' % (
-                res.returncode, ' '.join(cmd), log))
+        log += _run_all([[nvcc, *ARCH, '-shared', '-o', str(tmp),
+                          *map(str, objs)]])
         os.replace(tmp, out)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(out))
     vp, ci, cd, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                        ctypes.c_longlong)
@@ -109,6 +135,19 @@ def load():
     lib.pyjac_stage_b.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cll,
                                   vp]
     lib.pyjac_stage_b.restype = ci
+    lib.pyjac_big_parts_n_tables.argtypes = []
+    lib.pyjac_big_parts_n_tables.restype = ci
+    lib.pyjac_big_parts.argtypes = [vp, ci, vp, ci, cd, vp, cll, ci, ci, ci,
+                                    vp, vp]
+    lib.pyjac_big_parts.restype = ci
+    lib.pyjac_big_cols_sparse.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                          cll, vp]
+    lib.pyjac_big_cols_sparse.restype = ci
+    lib.pyjac_big_cols_dense_tiles.argtypes = [ci]
+    lib.pyjac_big_cols_dense_tiles.restype = ci
+    lib.pyjac_big_cols_dense.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                         vp, ci, ci, ci, ci, ci, cll, vp]
+    lib.pyjac_big_cols_dense.restype = ci
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
@@ -205,4 +244,109 @@ def stage_b(mod, src, post):
                                 int(mod.conp), B, _stream(dev))
     _raise_on(err, 'stage B kernel')
     launches['stage_b'] += 1
+    return out
+
+
+def big_parts(mod, st_rows, roles, row0: int, rows: int, has_pm: bool):
+    """Launch the K5 kernel (``csrc/big_parts.cu``) for the tables of
+    ``mod`` (a ``BigJacobian``) on the pre-stage rows ``st_rows``
+    (5 + 3N, B): writes reaction rows [row0, row0 + rows) of ``roles``
+    (n_roles, R, B), with the pressure-modification machinery when
+    ``has_pm``."""
+    from .rates import _LN_PA_RU
+    from .jacobian_big import PARTS_INT_TABLES
+    dev, N, R, B = st_rows.device, mod.N, mod.R, st_rows.shape[-1]
+    _check('st_rows', st_rows, (5 + 3 * N, B), F64, dev)
+    _check('roles', roles, (mod.n_roles, R, B), F64, dev)
+    if not (0 <= row0 and 0 < rows and row0 + rows <= R):
+        raise ValueError('reaction rows [%d, %d) outside [0, %d)'
+                         % (row0, row0 + rows, R))
+    # the checked table pointers, kept on the module under the buffers'
+    # addresses (a 654-class pass is host-bound), so a moved or
+    # reassigned buffer is checked and passed anew
+    tabs = [t for k, t in mod._buffers.items() if k.startswith('kp_')]
+    key = ('big_parts', dev) + tuple(t.data_ptr() for t in tabs)
+    cache = mod._launch_cache
+    if key not in cache:
+        names = [k for k in mod._buffers if k.startswith('kp_')]
+        for k, t in zip(names, tabs):
+            want = torch.int32 if k[3:] in PARTS_INT_TABLES else F64
+            _check('BigJacobian.' + k, t, t.shape, want, dev)
+        lib = load()
+        if lib.pyjac_big_parts_n_tables() != len(tabs):
+            raise RuntimeError(
+                'K5 table count mismatch: %d in Python, %d in the kernel'
+                % (len(tabs), lib.pyjac_big_parts_n_tables()))
+        p = mod.packed
+        NT, NP = p.cheb_coef.shape[1:]
+        dims = [N, R, mod.Sf, mod.Sp, p.plog_lnP.shape[1], NT, NP,
+                int(mod.conp), int(p.has_frac_nu)]
+        cache.clear()
+        cache[key] = (
+            (ctypes.c_void_p * len(tabs))(*key[2:]),
+            (ctypes.c_int * len(dims))(*dims), len(tabs), len(dims))
+    ptrs, cdims, n_tabs, n_dims = cache[key]
+    lib = load()
+    with torch.cuda.device(dev):
+        err = lib.pyjac_big_parts(ptrs, n_tabs, cdims, n_dims, _LN_PA_RU,
+                                  _ptr(st_rows), B, row0, rows,
+                                  int(bool(has_pm)), _ptr(roles),
+                                  _stream(dev))
+    _raise_on(err, 'K5 reaction-parts kernel')
+    launches['big_parts'] += 1
+    return roles
+
+
+def big_cols_sparse(mod, p1c, post):
+    """Launch the K6 kernel (``csrc/big_cols_sparse.cu``) for the tables
+    of ``mod`` (a ``BigJacobian`` with ``sparse_cols``): the (J, N, B)
+    columns from the compressed operand ``p1c`` (J * Rmax, B) and the
+    post rows."""
+    dev, N, J, B = p1c.device, mod.N, mod.J, p1c.shape[-1]
+    _check('p1c', p1c, (J * mod.Rmax, B), F64, dev)
+    _check('post', post, (mod.n_post, B), F64, dev)
+    for name, want, shape in (('ks_ptr', torch.int32, (J * N + 1,)),
+                              ('ks_src', torch.int32, mod.ks_src.shape),
+                              ('ks_coef', F64, mod.ks_src.shape),
+                              ('inv_mw', F64, (N,))):
+        _check('BigJacobian.' + name, getattr(mod, name), shape, want, dev)
+    lib = load()
+    out = torch.empty((J, N, B), dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pyjac_big_cols_sparse(
+            _ptr(mod.ks_ptr), _ptr(mod.ks_src), _ptr(mod.ks_coef),
+            _ptr(mod.inv_mw), _ptr(p1c), _ptr(post), _ptr(out), N,
+            int(mod.conp), B, _stream(dev))
+    _raise_on(err, 'K6 sparse column kernel')
+    launches['big_cols_sparse'] += 1
+    return out
+
+
+def big_cols_dense(mod, roles, post):
+    """Launch the K7 kernel (``csrc/big_cols_dense.cu``): the (J, N, B)
+    columns of ``mod`` (a ``BigJacobian`` with ``sparse_cols=False``)
+    from the role array and the post rows."""
+    dev, N, R, J, B = roles.device, mod.N, mod.R, mod.J, roles.shape[-1]
+    _check('roles', roles, (mod.n_roles, R, B), F64, dev)
+    _check('post', post, (mod.n_post, B), F64, dev)
+    t = mod.tab('kd_')
+    for name, want, shape in (('nu_net', F64, (R, N)),
+                              ('spf', torch.int32, (R, mod.Sf)),
+                              ('spp', torch.int32, (R, mod.Sp)),
+                              ('eff', F64, (R, N)),
+                              ('pd', torch.int32, (R,))):
+        _check('BigJacobian.kd_' + name, t[name], shape, want, dev)
+    _check('BigJacobian.inv_mw', mod.inv_mw, (N,), F64, dev)
+    lib = load()
+    out = torch.empty((J, N, B), dtype=F64, device=dev)
+    tpart = torch.empty((lib.pyjac_big_cols_dense_tiles(N), J, B),
+                        dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pyjac_big_cols_dense(
+            _ptr(t['nu_net']), _ptr(t['spf']), _ptr(t['spp']),
+            _ptr(t['eff']), _ptr(t['pd']), _ptr(mod.inv_mw), _ptr(roles),
+            _ptr(post), _ptr(out), _ptr(tpart), N, R, mod.Sf, mod.Sp,
+            int(mod.conp), B, _stream(dev))
+    _raise_on(err, 'K7 dense column kernel')
+    launches['big_cols_dense'] += 1
     return out

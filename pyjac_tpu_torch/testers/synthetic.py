@@ -457,13 +457,19 @@ def flagship():
     ``plausible_mechanism(53, 325, seed=42)`` text parsed through the
     Chemkin reader and packed, exactly as the JAX package's
     ``__graft_entry__._flagship_packed`` builds it."""
+    return packed_from_text(plausible_mechanism(n_species=53,
+                                                n_reactions=325, seed=42))
+
+
+def packed_from_text(text: str):
+    """(mech, packed) of Chemkin mechanism ``text`` (e.g. one of this
+    module's generators), parsed through a temporary file."""
     import os
     import tempfile
 
     from ..core.mech import Mechanism
     from ..core.pack import pack
 
-    text = plausible_mechanism(n_species=53, n_reactions=325, seed=42)
     fd, path = tempfile.mkstemp(suffix='.inp')
     try:
         with os.fdopen(fd, 'w') as fh:

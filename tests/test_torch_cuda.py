@@ -12,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from pyjac_tpu_torch.core.constants import RU
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
+from pyjac_tpu_torch.ops.jacobian_big import BigJacobian
 from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian
-from pyjac_tpu_torch.testers.synthetic import flagship, synthetic_mechanism
+from pyjac_tpu_torch.testers.synthetic import (flagship, packed_from_text,
+                                               random_states,
+                                               synthetic_mechanism)
 
 torch.set_num_threads(1)
 
@@ -44,11 +48,12 @@ def test_kernels_match_cpu_on_card(card):
     its CPU run (the plain versions) on the flagship golden states."""
     _, p = flagship()
     g = np.load(DATA / 'golden_flagship_refc.npz')
-    J0, f0 = SparseJacobian(p)(g['y'], g['P'])
+    J0, f0 = SparseJacobian(p, device='cpu')(g['y'], g['P'])
     kernels.reset_launches()
     J, f = SparseJacobian(p, device=card)(g['y'], g['P'])
     torch.cuda.synchronize(card)
-    assert kernels.launches == {'stage_a': 1, 'stage_b': 1}
+    assert kernels.launches == {'stage_a': 1, 'stage_b': 1, 'big_parts': 0,
+                                'big_cols_sparse': 0, 'big_cols_dense': 0}
     assert J.device == card and J.dtype == torch.float64
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -62,7 +67,7 @@ def test_ragged_batch_on_card(card, B):
     _, p = flagship()
     d = np.load(DATA / 'flagship_states.npz')
     y, P = d['y'][:B], d['P'][:B]
-    J0, f0 = SparseJacobian(p)(y, P)
+    J0, f0 = SparseJacobian(p, device='cpu')(y, P)
     J, f = SparseJacobian(p, device=card)(y, P)
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -74,7 +79,8 @@ def test_uncovered_mechanism_refuses_card(card, tmp_path):
     kernel yet: moving such a module to the card raises."""
     path = tmp_path / 'synth.inp'
     path.write_text(synthetic_mechanism(n_species=9, n_reactions=24, seed=7))
-    sj = SparseJacobian(pack(Mechanism.from_files(str(path))))
+    sj = SparseJacobian(pack(Mechanism.from_files(str(path))),
+                        device='cpu')
     with pytest.raises(NotImplementedError, match='PLOG'):
         sj.to(card)
 
@@ -93,3 +99,64 @@ def test_launchers_check_inputs(card):
                                         dtype=torch.float64, device=card),
                         torch.zeros((sj.n_post, 256), dtype=torch.float64,
                                     device=card))
+
+
+# ---------------------------------------------------------------------------
+# the large-mechanism pipeline (K5, K6, K7)
+# ---------------------------------------------------------------------------
+
+def _big_pair(p, y, P, **kw):
+    """(J, f) of BigJacobian on the CPU (plain versions) and on the card,
+    and the card run's launch counts."""
+    J0, f0 = BigJacobian(p, device='cpu', **kw)(y, P)
+    kernels.reset_launches()
+    J, f = BigJacobian(p, device='cuda', **kw)(y, P)
+    torch.cuda.synchronize()
+    return J0.numpy(), f0.numpy(), J.cpu().numpy(), f.cpu().numpy(), dict(
+        kernels.launches)
+
+
+@pytest.mark.parametrize('kw', [{}, dict(sparse_cols=False)])
+def test_big_matches_cpu_on_card(card, kw):
+    """BigJacobian on the card launches K5 (twice: the pres-mod rows are
+    split off) and K6 (or K7) and agrees with its CPU run on the flagship
+    golden states."""
+    _, p = flagship()
+    g = np.load(DATA / 'golden_flagship_refc.npz')
+    J0, f0, J, f, n = _big_pair(p, g['y'], g['P'], **kw)
+    cols = 'big_cols_sparse' if kw.get('sparse_cols', True) else \
+        'big_cols_dense'
+    assert n['big_parts'] == 2 and n[cols] >= 1
+    assert _floored(J, J0, 1e-10) < 1e-9
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+@pytest.mark.parametrize('conp', [True, False])
+def test_big_ragged_and_conv_on_card(card, conp):
+    """A batch of 1000 states (no multiple of a thread block), CONP and
+    CONV (density = each state's own), on the all-features synth."""
+    _, p = packed_from_text(synthetic_mechanism(n_species=9, n_reactions=24,
+                                                seed=7))
+    y, _, P = random_states(p.mech, 1000, seed=3)
+    if not conp:
+        Yf = np.concatenate([y[:, 1:], 1.0 - y[:, 1:].sum(1, keepdims=True)],
+                            1)
+        P = P / (RU * y[:, 0] * (Yf * p.inv_mw).sum(1))
+    J0, f0, J, f, _ = _big_pair(p, y, P, conp=conp)
+    assert _floored(J, J0, 1e-10) < 1e-9
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+def test_big_reassigned_table_on_card(card):
+    """K5's launcher keeps its checked table pointers under the buffers'
+    addresses: a table buffer replaced after a call is passed anew, not
+    as the freed address."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:256], d['P'][:256]
+    bj = BigJacobian(p, device=card)
+    J1, f1 = bj(y, P)
+    bj.kp_logA = bj.kp_logA.clone()
+    torch.cuda.empty_cache()
+    J2, f2 = bj(y, P)
+    assert torch.equal(J1, J2) and torch.equal(f1, f2)

@@ -119,7 +119,7 @@ def test_kernel_coverage(flagship, synth):
     """The flagship is inside the CUDA kernels' coverage; the
     all-features synth is not, and moving it to CUDA raises."""
     assert kernel_unsupported(flagship[1]) == []
-    sj = SparseJacobian(synth[1])
+    sj = SparseJacobian(synth[1], device='cpu')
     assert set(sj.unsupported) >= {'PLOG', 'Chebyshev', 'SRI',
                                    'fractional nu'}
     with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -130,7 +130,7 @@ def test_kernel_coverage(flagship, synth):
 def test_kernel_launchers_refuse_cpu_tensors(flagship):
     """No fallback: a kernel launcher given CPU tensors raises, builds
     nothing and counts no launch."""
-    sj = SparseJacobian(flagship[1])
+    sj = SparseJacobian(flagship[1], device='cpu')
     y_t = torch.zeros((sj.N, 4), dtype=torch.float64)
     P_t = torch.ones((1, 4), dtype=torch.float64)
     before = dict(kernels.launches)
@@ -174,7 +174,7 @@ def test_stage_a_matches_jax_dd_parts(tmp_path):
 
     out = stage_a_reference(p, torch.as_tensor(y64.T.copy()),
                             torch.as_tensor(P64[None].copy()))
-    sj = SparseJacobian(p)
+    sj = SparseJacobian(p, device='cpu')
     R = p.n_reactions
     n_vals = (sj.Sf + sj.Sp) * R
     got_src = out['src'].numpy()
@@ -205,7 +205,7 @@ def test_slice_matches_jax_f64(flagship):
     f64 path is held to against reference C) and dy/dt < 1e-7."""
     jp, p, g = flagship
     y, P = g['y'][:32], g['P'][:32]
-    J, f = SparseJacobian(p)(y, P)
+    J, f = SparseJacobian(p, device='cpu')(y, P)
     jJ, jf = jjacobian_and_dydt(jp, 0.0, jnp.asarray(P), jnp.asarray(y))
     assert J.shape == (32, 53, 53) and f.shape == (32, 53)
     assert J.dtype == f.dtype == torch.float64
@@ -219,7 +219,7 @@ def test_slice_flagship_golden(flagship):
     norm-relative < 1e-7 (``tests/test_golden_parity.py:255-274``)."""
     _, p, g = flagship
     n = len(g['T'])
-    J, f = SparseJacobian(p)(g['y'], g['P'])
+    J, f = SparseJacobian(p, device='cpu')(g['y'], g['P'])
     Jl = J.numpy().transpose(0, 2, 1).reshape(n, -1)
     assert _floored(Jl, g['ref_jac'], 1e-10) < 1e-8
     assert _norm_rel(f.numpy(), g['ref_dydt']) < 1e-7
@@ -231,7 +231,7 @@ def test_slice_synth_golden(synth):
     sparse path refuses — at ``TestAllFeaturesGolden``'s tolerances."""
     _, p, g = synth
     n = len(g['T'])
-    J, f = SparseJacobian(p)(g['y'], g['P'])
+    J, f = SparseJacobian(p, device='cpu')(g['y'], g['P'])
     Jl = J.numpy().transpose(0, 2, 1).reshape(n, -1)
     assert _floored(Jl, g['ref_jac'], 1e-9) < 1e-8
     assert _floored(f.numpy(), g['ref_dydt'], 1e-9) < 1e-10
@@ -244,7 +244,7 @@ def test_slice_matches_plain_jacobian(synth, conp):
     _, p, g = synth
     y = torch.as_tensor(g['y'][:32])
     P = torch.as_tensor(g['P'][:32])
-    J, f = SparseJacobian(p, conp=conp)(y, P)
+    J, f = SparseJacobian(p, conp=conp, device='cpu')(y, P)
     J0, f0 = jacobian_and_dydt(p, 0.0, P, y, conp=conp)
     assert _floored(J.numpy(), J0.numpy(), 1e-10) < 1e-10
     assert _norm_rel(f.numpy(), f0.numpy()) < 1e-12
