@@ -1,16 +1,17 @@
 """On-card smoke run of the PyTorch + CUDA port (``pyjac_tpu_torch``).
 
-Drives the port's two paths — the flagship 53-species / 325-reaction
+Drives the port's paths — the flagship 53-species / 325-reaction
 mechanism's analytical Jacobian + dy/dt through ``SparseJacobian``
-(kernels K1, K2), and the large-mechanism pipeline ``BigJacobian``
-(kernels K5, K6, K7) at the 654-species / 2716-reaction and USC-II
-(111 / 784) classes — on one CUDA card, in phases; any failure exits
-non-zero at once:
+(kernels K1, K2; K2x with ``fuse_gather=False``), the large-mechanism
+pipeline ``BigJacobian`` (kernels K5, K6, K7) at the 654-species /
+2716-reaction and USC-II (111 / 784) classes, and the stiff integrator
+``integrate(jacobian='dd')`` with the dense fused kernel K4 — on one
+CUDA card, in phases; any failure exits non-zero at once:
 
 1. device: a CUDA card is required; prints its ``nvidia-smi`` name and
    power limit;
-2. build: compiles the two kernels of ``pyjac_tpu_torch/csrc`` with
-   nvcc and loads them;
+2. build: compiles the six sources of ``pyjac_tpu_torch/csrc`` with
+   nvcc (one process each, all at once) and loads them;
 3. kernels vs plain: each kernel against its plain PyTorch version on
    the same 16384 flagship states (and stage A also under CONV);
 4. golden: the 128 reference-C golden states of
@@ -18,7 +19,8 @@ non-zero at once:
 5. main path: the flagship states tiled to B = 131072 through
    ``SparseJacobian.call_tr`` (one warm-up, best of 3 timed passes with
    CUDA events), with both kernels' launch counters checked, then each
-   stage timed alone against its plain version at the same B;
+   stage timed alone against its plain version and (K2) one PyTorch
+   library call at the same B;
 6. big kernels vs plain: K5, K6 and K7 against their plain versions on
    the same inputs, CONP and CONV, at the shape of each timed path of
    phase 8 (K5 + K6 at the 654 class, B = 1024, and at the USC-II class,
@@ -34,7 +36,22 @@ non-zero at once:
    B = 32768 (each checked against ``SparseJacobian``), and the dense K7
    configuration at the 654 class, B = 512; then the stage split and
    each kernel alone beside its plain version, its bound and one
-   PyTorch library call.
+   PyTorch library call;
+9. K4 and K2x vs plain: K4 against ``dense_reference`` on the flagship
+   at B = 32768 (the integrate cell's shape) and the 9/24 synth at
+   B = 16384, CONP and CONV; K2x against ``stage_b_reference`` on the
+   gathered operand at B = 131072;
+10. dense golden: both goldens through ``DenseJacobian`` and the
+    flagship's through ``SparseJacobian(fuse_gather=False)``;
+11. the integrate path: the flagship PaSR states tiled to B = 32768
+    through ``integrate(..., 1e-4, jacobian='dd', method='ros23')`` (one
+    warm-up, best of 3 with CUDA events; every state must succeed, and
+    K4 launch once per loop iteration), its ``torch.profiler`` split per
+    iteration, K4 alone beside its plain version and bound; then
+    ``jacobian='dd'`` against ``'xla'`` (equal steps, endpoints) for
+    ROS23 and RODAS3 on 4096 states and for 256 states heated by
+    300 K; then the ``fuse_gather=False`` flagship path at B = 131072
+    timed as phase 5, and K2x alone.
 
 The last three lines of standard output are one JSON object with a
 row per kernel, the ``nvidia-smi`` line, and
@@ -49,6 +66,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -57,12 +75,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
+from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate  # noqa: E402
+from pyjac_tpu_torch.ops.jacobian import reaction_parts  # noqa: E402
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
     ROLE_NAMES, BigJacobian, cols_dense_reference, cols_sparse_reference,
-    finish, p1_dense, parts_reference, source_stack, state_thermo)
+    dense_col_tables, finish, p1_dense, parts_reference, source_stack,
+    state_thermo)
+from pyjac_tpu_torch.ops.jacobian_dense import (  # noqa: E402
+    DenseJacobian, dense_reference)
 from pyjac_tpu_torch.ops.jacobian_sparse import (  # noqa: E402
-    SparseJacobian, post_rows, stage_a_reference, stage_b_reference)
+    SparseJacobian, finish_coefs, post_rows, stage_a_reference,
+    stage_b_reference)
 from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
     flagship, packed_from_text, plausible_mechanism, random_states,
     synthetic_mechanism)
@@ -101,6 +125,11 @@ TOL_BIG_JT = 1e-12        # ... and J's temperature row, relative to the
 #                           states, so on the floored scale two f64
 #                           summation orders differ by up to 2.2e-8 there
 TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored
+TOL_INTEGRATE = 1e-9      # integrate jacobian='dd' vs 'xla': endpoints
+#                           floored at 1e-10 of each state's largest entry
+
+# the integrate cell's horizon: one CFD flow step's chemistry sub-step
+T_END = 1e-4
 
 # BigJacobian's default configuration is K5 + K6 (split_presmod on);
 # the dense one runs K5 + K7
@@ -327,9 +356,13 @@ def phase_main(sj, packed, device, B, card):
     ms['stage_b_plain'] = best_ms(
         lambda: stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, a['src'],
                                   a['post'], True), reps=2)
+    # K2's library yardstick: the contraction on the gathered operand
+    ms['stage_b_lib'] = best_ms(lambda: torch.bmm(sj.nuc, a['src'][sj.gidx]))
     for k in ('stage_a', 'stage_b'):
-        print('  %s: kernel %.3f ms, plain version %.3f ms (B=%d, %s)'
-              % (k, ms[k], ms[k + '_plain'], B, card))
+        print('  %s: kernel %.3f ms, plain version %.3f ms, library call %s '
+              'ms (B=%d, %s)' % (k, ms[k], ms[k + '_plain'],
+                                 '%.3f' % ms[k + '_lib'] if k + '_lib' in ms
+                                 else 'none', B, card))
     J, N = sj.J, sj.N
     tabs = [t for k, t in sj._buffers.items() if k.startswith('ka_')]
     bounds = {
@@ -370,32 +403,83 @@ def big_states(packed, B, device):
     return to_tr(y, P, device)
 
 
-def t_row_gross(mod, roles, post, conp):
-    """(J, B): for each column, the summed magnitude of the terms its
-    temperature row adds (``post_col_reference``'s JTY: the N terms
-    eWn * dcol and the fT term), from the plain contraction ``dcol``."""
-    N, J, B = mod.N, mod.J, roles.shape[-1]
+def big_dcol(mod, roles):
+    """The plain raw contraction (J, N, B) of ``mod``'s column kernel (K6
+    or K7) from the role array."""
+    J, B = mod.J, roles.shape[-1]
     if mod.sparse_cols:
         p1c = mod.assemble_p1c(source_stack(roles, mod.Sf + mod.Sp,
                                             mod.eff_val))
-        dcol = torch.einsum('jnr,jrb->jnb', mod.ks_nuc,
+        return torch.einsum('jnr,jrb->jnb', mod.ks_nuc,
                             p1c.view(J, mod.Rmax, B))
-        del p1c
-    else:
-        td = mod.tab('kd_')
-        dcol = torch.stack([td['nu_net'].T @ p1_dense(
-            roles, mod.Sf, mod.Sp, td['spf'], td['spp'], td['eff'],
-            td['pd'], j) for j in range(J)], 0)
+    return dense_dcol(mod.tab('kd_'), roles, mod.Sf, mod.Sp)
+
+
+def dense_dcol(td, roles, Sf, Sp):
+    """The dense plain contraction (J, N, B) of K7 / K4 from the role
+    array and the ``dense_col_tables`` tensors ``td``."""
+    J = td['nu_net'].shape[1] - 1
+    return torch.stack([td['nu_net'].T @ p1_dense(
+        roles, Sf, Sp, td['spf'], td['spp'], td['eff'], td['pd'], j)
+        for j in range(J)], 0)
+
+
+def dense_magnitudes(td, roles, post, Sf, Sp, last, q_gross):
+    """The summed magnitudes of the products the sums behind a J column
+    add: (J, N, B) for each column's operand contraction, |nu_net|^T @
+    (the magnitudes of column j's operand roles); (N, B) for ``v_u`` and
+    ``v_c`` (``last``: ``finish_coefs``' at_last / pd_last tensors); and
+    (1, B) for dy/dt's temperature row fT = -sum_n eWn_n (nu_net^T q)_n,
+    sum_n |eWn_n| (|nu_net|^T q_gross)_n, with ``q_gross`` (R, B) =
+    |pm| (|Rf| + |Rr|), the magnitude of each net rate's terms."""
+    J = td['nu_net'].shape[1] - 1
+    N = J + 1
+    nu_abs = td['nu_net'].abs().T
+    k = Sf + Sp
+    a, b = post_rows(N, J)['eWn']
+    fT = (post[a:b].abs() * (nu_abs @ q_gross)).sum(0, keepdim=True)
+    vu = nu_abs @ roles[k + 2].abs()
+    vc = nu_abs @ (roles[k + 3].abs() +
+                   (roles[k + 4] * last['at_last'][:, None]).abs() +
+                   (roles[k + 5] * last['pd_last'][:, None]).abs())
+    out = []
+    for j in range(J):
+        acc = roles[k + 4].abs() * td['eff'][:, j:j + 1].abs()
+        acc = acc + torch.where((td['pd'] == j)[:, None], roles[k + 5].abs(),
+                                0.0)
+        for s in range(Sf):
+            acc = acc + torch.where((td['spf'][:, s] == j)[:, None],
+                                    roles[s].abs(), 0.0)
+        for s in range(Sp):
+            acc = acc + torch.where((td['spp'][:, s] == j)[:, None],
+                                    roles[Sf + s].abs(), 0.0)
+        out.append(nu_abs @ acc)
+    return torch.stack(out, 0), vu, vc, fT
+
+
+def t_row_gross(dcol, inv_mw, post, conp, mags=None):
+    """(J, B): for each column, the summed magnitude of the terms its
+    temperature row adds (``post_col_reference``'s JTY: the N terms
+    eWn * dcol and the fT term), from the plain contraction ``dcol``.
+    With ``mags`` (:func:`dense_magnitudes`; then ``dcol`` gives only the
+    shape) the products of the sums behind dcol, v_u, v_c and fT count
+    too: a kernel that sums them in another order than its plain version
+    rounds on their scale."""
+    N = dcol.shape[1]
+    J = N - 1
     g = {k: post[a:b] for k, (a, b) in post_rows(N, J).items()}
-    w = mod.inv_mw[:J]
-    u = w - mod.inv_mw[N - 1]
-    d = dcol * w[:, None, None] + g['v_u'][None] * u[:, None, None] + \
-        g['v_c'][None]
-    del dcol
+    w = inv_mw[:J]
+    u = w - inv_mw[N - 1]
+    if mags is None:
+        d = dcol * w[:, None, None] + g['v_u'][None] * u[:, None, None] + \
+            g['v_c'][None]
+    else:
+        d = (mags[0] * w[:, None, None] +
+             mags[1][None] * u.abs()[:, None, None] + mags[2][None])
     r = -(g['mw_avg'] * u[:, None]) if conp else 0.0
+    fT = g['fT'] if mags is None else mags[3]
     return ((g['eWn'][None] * d).abs().sum(1) +
-            (g['fT'] * (r + (g['cp'][:J] - g['cp'][N - 1]) *
-                        g['ish'])).abs())
+            (fT * (r + (g['cp'][:J] - g['cp'][N - 1]) * g['ish'])).abs())
 
 
 def phase_big_kernels(cases, device, card):
@@ -443,7 +527,8 @@ def phase_big_kernels(cases, device, card):
                                               mod.inv_mw, post, conp))
                 torch.cuda.synchronize()
                 e = floored_err(got, plain, 1e-10)
-                gross = t_row_gross(mod, ref, post, conp)
+                gross = t_row_gross(big_dcol(mod, ref), mod.inv_mw, post,
+                                    conp)
                 errs[kn + ' J T'] = (float(
                     ((got[:, 0] - plain[:, 0]).abs() / gross).max()),
                     TOL_BIG_JT)
@@ -720,7 +805,357 @@ def phase_big_main(mechs, sizes, device, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the dense fused kernel K4, K2x and the integrator
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_kernels(cases, device, card):
+    """Phase 9a: K4 against ``dense_reference`` on the same inputs, CONP
+    and CONV: J's column 0 as phase 3 gates col0, columns 1..J's species
+    rows floored and their temperature row on the summed magnitude of its
+    terms (as phase 6, with the contraction's own terms: K4 contracts the
+    operand's roles one by one, the plain version adds them per reaction
+    first), f as phase 3.  The case marked ``main`` gives the
+    row's ``max_abs_err`` (CONP)."""
+    res = {}
+    for name, packed, B, main in cases:
+        if name == 'flagship':
+            y_t, P_t = to_tr(*flagship_states(B), device)
+        else:
+            y_t, P_t = big_states(packed, B, device)
+        for conp in (True, False):
+            param = P_t if conp else own_density(packed, y_t, P_t)
+            dj = DenseJacobian(packed, conp=conp, device=device)
+            got, gf = dj.call_tr(y_t, param)
+            ref, rf = dense_reference(packed, y_t, param, conp)
+            torch.cuda.synchronize()
+            errs = {'col0 T': (row_rel(got[0, :1], ref[0, :1]), TOL_NET),
+                    'col0 Y': (state_rel(got[0, 1:], ref[0, 1:]), TOL_NET),
+                    'f T': (row_rel(gf[:1], rf[:1]), TOL_NET),
+                    'f Y': (state_rel(gf[1:], rf[1:]), TOL_NET),
+                    'f Y per row': (row_rel(gf[1:], rf[1:]), TOL_F_ROW)}
+            e = floored_err(got, ref, 1e-10)
+            errs['J Y'] = (float(e[1:, 1:].max()), TOL_BIG_J)
+            print('  K4 %s %s B=%d J T floored@1e-10 %.3e' % (
+                name, 'conp' if conp else 'conv', B, float(e[1:, :1].max())))
+            del e
+            st = state_thermo(packed, y_t, param, conp)
+            roles = parts_reference(packed, st, conp)
+            post = finish(packed, st, roles, conp)['post']
+            td = {k: torch.as_tensor(v, device=device)
+                  for k, v in dense_col_tables(packed).items()}
+            Sf, Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
+            last = {k: torch.as_tensor(v, device=device)
+                    for k, v in finish_coefs(packed).items()}
+            rp = reaction_parts(packed, param[0], y_t.T, conp)
+            q_gross = (rp['pm'].abs() * (rp['Rf'].abs() + rp['Rr'].abs())).T
+            del rp
+            mags = dense_magnitudes(td, roles, post, Sf, Sp, last, q_gross)
+            gross = t_row_gross(mags[0], dj.inv_mw, post, conp, mags=mags)
+            errs['J T'] = (float(((got[1:, 0] - ref[1:, 0]).abs() /
+                                  gross).max()), TOL_BIG_JT)
+            tag = 'K4 %s %s B=%d' % (name, 'conp' if conp else 'conv', B)
+            for nm, (err, tol) in errs.items():
+                print('  %s %-11s %.3e (<= %.0e)' % (tag, nm, err, tol))
+            for nm, (err, tol) in errs.items():
+                check(err <= tol, '%s %s: %.3e > %.0e' % (tag, nm, err, tol))
+            if conp and main:
+                res['dense_fused'] = float((got - ref).abs().max())
+            del got, ref, gf, rf, st, roles, post, mags, gross, dj
+            torch.cuda.empty_cache()
+    print('phase 9a K4 vs plain: ok (%s)' % card)
+    return res
+
+
+def phase_k2x(packed, device, B, card):
+    """Phase 9b: K2x against ``stage_b_reference`` on the gathered operand,
+    the same K1 outputs, at the timed shape (phase 11d)."""
+    sx = SparseJacobian(packed, fuse_gather=False, device=device)
+    y_t, P_t = to_tr(*flagship_states(B), device)
+    a = sx.stage_a(y_t, P_t)
+    p1 = sx.stage_gather(a['src'])
+    got = sx.stage_b_x(p1, a['post'])
+    rows = torch.arange(sx.J * sx.Rmax, device=device).view(sx.J, sx.Rmax)
+    ref = stage_b_reference(rows, sx.nuc, sx.inv_mw, p1, a['post'])
+    torch.cuda.synchronize()
+    err = floored(got, ref, 1e-10)
+    print('phase 9b K2x vs plain: J floored@1e-10 %.3e (<= %.0e) (B=%d, %s)'
+          % (err, TOL_J, B, card))
+    check(err <= TOL_J, 'K2x: %.3e > %.0e' % (err, TOL_J))
+    return {'stage_b_x': float((got - ref).abs().max())}
+
+
+def phase_dense_golden(mechs, device, card):
+    """Phase 10: both goldens through DenseJacobian (K4), the flagship
+    through SparseJacobian(fuse_gather=False) (K1, K2x)."""
+    runs = [(name, 'DenseJacobian', DenseJacobian(p, device=device))
+            for name, p in mechs]
+    runs.append(('flagship', 'SparseJacobian(fuse_gather=False)',
+                 SparseJacobian(mechs[0][1], fuse_gather=False,
+                                device=device)))
+    for name, what, mod in runs:
+        g = np.load(os.path.join(DATA, 'golden_%s_refc.npz' % name))
+        errJ, errf = golden_errs(mod, g)
+        print('phase 10 golden %s (%s): J floored@1e-10 %.3e (< %.0e), dy/dt '
+              'norm-rel %.3e (< %.0e) (%s)' % (name, what, errJ, TOL_GOLDEN_J,
+                                               errf, TOL_GOLDEN_F, card))
+        check(errJ < TOL_GOLDEN_J, 'golden %s %s J %.3e' % (name, what, errJ))
+        check(errf < TOL_GOLDEN_F, 'golden %s %s dy/dt %.3e' % (name, what,
+                                                                 errf))
+
+
+def integrate_profile(fn, iters, card):
+    """Device time per loop iteration of one integrate call ``fn``: K4 by
+    kernel name, the LU factor + solves and dy/dt by ``record_function``
+    ranges around the integrator's calls, the rest of the plain torch
+    arithmetic, and idle (the CUDA-event wall minus device busy)."""
+    import importlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    # the module (the package exports the function under the same name)
+    integ = importlib.import_module('pyjac_tpu_torch.integrate')
+
+    def ranged(name, f):
+        def g(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return g
+
+    saved = (integ.dydt_dispatch, integ.lu_factor, integ.lu_solve)
+    integ.dydt_dispatch = ranged('smoke.dydt', saved[0])
+    integ.lu_factor = ranged('smoke.lu_factor', saved[1])
+    integ.lu_solve = ranged('smoke.lu_solve', saved[2])
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+    finally:
+        integ.dydt_dispatch, integ.lu_factor, integ.lu_solve = saved
+    wall = s.elapsed_time(e)
+    busy = k4 = 0.0
+    ranges = {'smoke.dydt': 0.0, 'smoke.lu_factor': 0.0,
+              'smoke.lu_solve': 0.0}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.name not in ranges:
+            # (a range's own span on the device timeline is not busy
+            # time: its kernels are counted one by one)
+            t = ev.device_time / 1e3
+            busy += t
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + t
+            if 'dense_fused' in ev.name:
+                k4 += t
+        elif ev.device_type == DeviceType.CPU and ev.name in ranges:
+            ranges[ev.name] += ev.device_time_total / 1e3
+    if busy <= 0.0:
+        print('  integrate profile: no device time in the trace (not '
+              'measured)')
+        return None
+    n = float(iters)
+    split = dict(K4=k4 / n, lu_factor=ranges['smoke.lu_factor'] / n,
+                 lu_solve=ranges['smoke.lu_solve'] / n,
+                 dydt=ranges['smoke.dydt'] / n)
+    split['other'] = busy / n - sum(split.values())
+    split['idle'] = (wall - busy) / n
+    print('  integrate profile (torch.profiler, one call, %d iterations, %s): '
+          'wall %.3f ms, device busy %.3f ms, idle share %.1f%%' % (
+              iters, card, wall, busy, 100.0 * (1.0 - busy / wall)))
+    print('  per iteration, device ms: K4 %.3f, LU factor %.3f, LU solves '
+          '%.3f, plain-torch dy/dt %.3f, other plain torch %.3f, idle %.3f'
+          % (split['K4'], split['lu_factor'], split['lu_solve'],
+             split['dydt'], split['other'], split['idle']))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print('    %9.3f ms %5.1f%%  %s' % (ms, 100.0 * ms / busy, name[:90]))
+    return split
+
+
+def integrate_summary(res):
+    st = res.status.cpu().numpy()
+    steps = res.steps.cpu().numpy()
+    rej = res.rejected.cpu().numpy()
+    hist = {int(k): int(v) for k, v in zip(*np.unique(st, return_counts=True))}
+    return ('steps min/median/max %d/%d/%d, rejections %d (max %d per '
+            'state), status histogram %s, %d iterations' % (
+                steps.min(), np.median(steps), steps.max(), rej.sum(),
+                rej.max(), hist, res.iterations)), hist
+
+
+def same_run(a, b, what):
+    """Phase 11 gate: equal steps, rejections and status per state, and
+    endpoints floored@1e-10 within TOL_INTEGRATE."""
+    for k in ('steps', 'rejected', 'status'):
+        check(torch.equal(getattr(a, k), getattr(b, k)),
+              '%s: %s differ' % (what, k))
+    err = floored(a.y.T, b.y.T, 1e-10)
+    check(err <= TOL_INTEGRATE, '%s: endpoints %.3e > %.0e' % (
+        what, err, TOL_INTEGRATE))
+    return err
+
+
+def phase_integrate(packed, device, sizes, card):
+    """Phase 11: the integrator at full width (jacobian='dd': K4 once per
+    loop iteration), its profiler split, 'dd' against 'xla' on slices,
+    and the fuse_gather=False flagship path timed."""
+    res = {'ms': {}}
+    B = sizes['integrate']
+    y, P = flagship_states(B)
+    y0 = torch.as_tensor(y, device=device)
+    P0 = torch.as_tensor(P, device=device)
+    out = {}
+
+    def run():
+        out['r'] = integrate(packed, y0, P0, T_END, jacobian='dd',
+                             method='ros23')
+
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    wall = best_ms(run, reps=3, warm=1)
+    counts = dict(kernels.launches)
+    r = out['r']
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    summ, hist = integrate_summary(r)
+    print('phase 11a integrate: B=%d, t_end %g s, ROS23, jacobian=dd, best '
+          'of 3 %.3f ms = %.0f states/s, %s, peak %.2f GiB, launches %s (%s)'
+          % (B, T_END, wall, B / (wall * 1e-3), summ, peak, counts, card))
+    check(bool(torch.isfinite(r.y).all()), 'non-finite integrated states')
+    check(hist == {STATUS_SUCCESS: B}, 'not every state succeeded: %s' % hist)
+    check(counts['dense_fused'] == 4 * r.iterations,
+          'K4 launches %d != 4 runs x %d iterations' % (
+              counts['dense_fused'], r.iterations))
+    res.update(counts_integrate=counts, wall=wall, iterations=r.iterations)
+    res['split'] = integrate_profile(run, r.iterations, card)
+
+    # K4 alone at this shape, beside its plain version and its bound
+    dj = DenseJacobian(packed, device=device)
+    y_t, P_t = y0.T.contiguous(), P0[None].contiguous()
+    res['ms']['dense_fused'] = per_call_ms(lambda: dj.call_tr(y_t, P_t))
+    res['ms']['dense_fused_plain'] = best_ms(
+        lambda: dense_reference(packed, y_t, P_t, True), reps=2)
+    Jt, f = dj.call_tr(y_t, P_t)
+    tabs = [v for k, v in dj._buffers.items() if k.startswith(('kp_', 'kf_'))]
+    nnz = int((torch.as_tensor(packed.nu_net) != 0).sum())
+    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs),
+                         (2.0 * dj.kf_col_coef.numel() + 8.0 * nnz +
+                          8.0 * dj.J * dj.N) * B)
+    print('  dense_fused: kernel %.3f ms, plain version %.3f ms, library call '
+          'none, bound %.3f ms (%s) (flagship, B=%d, %s)' % (
+              res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
+              res['bound'][0], res['bound'][1], B, card))
+    del Jt, f, dj, out
+    torch.cuda.empty_cache()
+
+    # 'dd' against 'xla' on slices: the PaSR states, both methods, and the
+    # states heated by 300 K (hundreds of steps, with rejections)
+    Bs = sizes['integrate_check']
+    t0 = time.perf_counter()
+    for method in ('ros23', 'rodas3'):
+        a = integrate(packed, y0[:Bs], P0[:Bs], T_END, jacobian='dd',
+                      method=method)
+        b = integrate(packed, y0[:Bs], P0[:Bs], T_END, jacobian='xla',
+                      method=method)
+        err = same_run(a, b, method)
+        print('phase 11b %s dd vs xla: B=%d, %s; same steps, endpoints '
+              'floored@1e-10 %.3e (<= %.0e) (%.1f s, %s)' % (
+                  method, Bs, integrate_summary(a)[0], err, TOL_INTEGRATE,
+                  time.perf_counter() - t0, card))
+        t0 = time.perf_counter()
+    Bh = sizes['integrate_hot']
+    yh = y0[:Bh].clone()
+    yh[:, 0] += 300.0
+    a = integrate(packed, yh, P0[:Bh], T_END, jacobian='dd')
+    b = integrate(packed, yh, P0[:Bh], T_END, jacobian='xla')
+    err = same_run(a, b, 'ros23 +300 K')
+    check(int(a.rejected.sum()) > 0, '+300 K states rejected no step')
+    print('phase 11c ros23 +300 K dd vs xla: B=%d, %s; same steps, endpoints '
+          'floored@1e-10 %.3e (<= %.0e) (%.1f s, %s)' % (
+              Bh, integrate_summary(a)[0], err, TOL_INTEGRATE,
+              time.perf_counter() - t0, card))
+    del a, b, yh
+    torch.cuda.empty_cache()
+
+    # --- d. the fuse_gather=False flagship path, timed as phase 5 --------
+    Bx = sizes['unfused']
+    sx = SparseJacobian(packed, fuse_gather=False, device=device)
+    yx, Px = to_tr(*flagship_states(Bx), device)
+    ms, cx, chk = timed_path(sx, yx, Px, ('stage_a', 'stage_b_x'))
+    check(cx['stage_b'] == 0, 'the unfused path launched K2')
+    res['counts_unfused'] = cx
+    print('phase 11d flagship fuse_gather=False path: B=%d, best of 3 %.3f ms '
+          '= %.0f evals/s, checksums %s, launches %s (%s)' % (
+              Bx, ms, Bx / (ms * 1e-3), ['%.6e' % c for c in chk], cx, card))
+    a = sx.stage_a(yx, Px)
+    p1 = sx.stage_gather(a['src'])
+    rows = torch.arange(sx.J * sx.Rmax, device=device).view(sx.J, sx.Rmax)
+    k = res['ms']
+    k['stage_gather'] = best_ms(lambda: sx.stage_gather(a['src']))
+    k['stage_b_x'] = best_ms(lambda: sx.stage_b_x(p1, a['post']))
+    k['stage_b_x_plain'] = best_ms(
+        lambda: stage_b_reference(rows, sx.nuc, sx.inv_mw, p1, a['post']),
+        reps=2)
+    k['stage_b_x_lib'] = best_ms(
+        lambda: torch.bmm(sx.nuc, p1.view(sx.J, sx.Rmax, Bx)))
+    res['bound_x'] = bound(nbytes(p1, a['post'], sx.kx_ptr, sx.kx_src,
+                                  sx.kx_coef, sx.inv_mw) +
+                           8 * sx.J * sx.N * Bx,
+                           2 * sx.kx_coef.numel() * Bx + 8 * sx.J * sx.N * Bx)
+    print('  stage_b_x (K2x): kernel %.3f ms, plain version %.3f ms, library '
+          'call %.3f ms, bound %.3f ms (%s); the gather alone %.3f ms '
+          '(B=%d, %s)' % (k['stage_b_x'], k['stage_b_x_plain'],
+                          k['stage_b_x_lib'], res['bound_x'][0],
+                          res['bound_x'][1], k['stage_gather'], Bx, card))
+    return res
+
+
+def kernel_rows(errs, main_res, big, integ):
+    """The kernels line: one row per ported TPU kernel.  ``launches`` is
+    the count of the path at whose shape the kernel is timed;
+    ``launches_by_path`` every path's run."""
+    flag = {'flagship': main_res['counts'],
+            'flagship_unfused': integ['counts_unfused']}
+    rows = []
+    for name, src, line in (
+            ('stage_a', 'sparse_stage_a.cu', 'pallas_dd.py:2099'),
+            ('stage_b', 'sparse_stage_b.cu', 'pallas_dd.py:2204'),
+            ('stage_b_x', 'big_cols_sparse.cu', 'pallas_dd.py:2162'),
+            ('dense_fused', 'dense_fused.cu', 'pallas_dd.py:2017'),
+            ('big_parts', 'big_parts.cu', 'pallas_dd.py:2747'),
+            ('big_cols_sparse', 'big_cols_sparse.cu', 'pallas_dd.py:2785'),
+            ('big_cols_dense', 'big_cols_dense.cu', 'pallas_dd.py:2669')):
+        if name in ('stage_a', 'stage_b', 'stage_b_x'):
+            ms = main_res['ms'] if name != 'stage_b_x' else integ['ms']
+            by_path = {p: c[name] for p, c in flag.items()}
+            main_path = ('flagship_unfused' if name == 'stage_b_x'
+                         else 'flagship')
+            b_ms, b_by = (integ['bound_x'] if name == 'stage_b_x'
+                          else main_res['bounds'][name])
+        elif name == 'dense_fused':
+            ms, main_path = integ['ms'], 'integrate'
+            by_path = {'integrate': integ['counts_integrate'][name]}
+            b_ms, b_by = integ['bound']
+        else:
+            ms = big['ms']
+            by_path = {p: big['counts_' + p][name]
+                       for p in ('654', 'usc', '654_dense')}
+            main_path = '654_dense' if name == 'big_cols_dense' else '654'
+            b_ms, b_by = big['bounds'][name]
+        rows.append(dict(
+            name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
+            replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
+            max_abs_err=errs[name], ms=ms[name], plain_ms=ms[name + '_plain'],
+            bound_ms=b_ms, bound_by=b_by, library_ms=ms.get(name + '_lib'),
+            launches_by_path=by_path))
+    return rows
+
+
 def main():
+    t0 = time.perf_counter()
     # --- phase 1: device -----------------------------------------------------
     check(torch.cuda.is_available(), 'no CUDA device available')
     device = torch.device('cuda', 0)
@@ -742,6 +1177,7 @@ def main():
     main_res = phase_main(sj, packed, device, 131072, card)
     del sj
     torch.cuda.empty_cache()
+    seconds = {'1-5': time.perf_counter() - t0}
 
     p654 = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
     p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
@@ -756,32 +1192,23 @@ def main():
         ('synth', p_syn, 16384, ('K6', 'K7'), ())), device, card))
     phase_big_golden((('flagship', packed), ('synth', p_syn)), device, card)
     big = phase_big_main({'654': p654, 'usc': p_usc}, sizes, device, card)
+    seconds['6-8'] = time.perf_counter() - t0 - sum(seconds.values())
 
-    rows = []
-    for name, src, line in (
-            ('stage_a', 'sparse_stage_a.cu', 'pallas_dd.py:2099'),
-            ('stage_b', 'sparse_stage_b.cu', 'pallas_dd.py:2204'),
-            ('big_parts', 'big_parts.cu', 'pallas_dd.py:2747'),
-            ('big_cols_sparse', 'big_cols_sparse.cu', 'pallas_dd.py:2785'),
-            ('big_cols_dense', 'big_cols_dense.cu', 'pallas_dd.py:2669')):
-        # launches: the run of the path at whose shape the kernel is
-        # timed; launches_by_path: every path's run
-        if name.startswith('stage'):
-            r, by_path = main_res, {'flagship': main_res['counts'][name]}
-            main_path = 'flagship'
-        else:
-            r = big
-            by_path = {p: big['counts_' + p][name]
-                       for p in ('654', 'usc', '654_dense')}
-            main_path = '654_dense' if name == 'big_cols_dense' else '654'
-        b_ms, b_by = r['bounds'][name]
-        rows.append(dict(
-            name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
-            replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
-            max_abs_err=errs[name], ms=r['ms'][name],
-            plain_ms=r['ms'][name + '_plain'], bound_ms=b_ms, bound_by=b_by,
-            library_ms=r['ms'].get(name + '_lib'),
-            launches_by_path=by_path))
+    errs.update(phase_dense_kernels((('flagship', packed, 32768, True),
+                                     ('synth', p_syn, 16384, False)),
+                                    device, card))
+    errs.update(phase_k2x(packed, device, 131072, card))
+    phase_dense_golden((('flagship', packed), ('synth', p_syn)), device, card)
+    seconds['9-10'] = time.perf_counter() - t0 - sum(seconds.values())
+    integ = phase_integrate(packed, device, {
+        'integrate': 32768, 'integrate_check': 4096, 'integrate_hot': 256,
+        'unfused': 131072}, card)
+    seconds['11'] = time.perf_counter() - t0 - sum(seconds.values())
+    print('phase seconds (host clock): %s, total %.1f s' % (
+        ', '.join('%s %.1f' % kv for kv in seconds.items()),
+        time.perf_counter() - t0))
+
+    rows = kernel_rows(errs, main_res, big, integ)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -23,16 +23,23 @@ Quick start::
     J, f = sj(y_batch, P_batch)                       # (B, N, N), (B, N)
     bj = pjt.BigJacobian(packed)        # K5 + K6; sparse_cols=False: K7
     J, f = bj(y_batch, P_batch)
+    dj = pjt.DenseJacobian(packed)      # K4, one fused launch
+    J, f = dj(y_batch, P_batch)
+
+    # stiff integration (ROS23 / RODAS3) with the K4 stage Jacobian
+    res = pjt.integrate(packed, y_batch, P_batch, 1e-4, jacobian='dd')
 """
 
 from .core.chemkin import MechanismError, read_mech, read_thermo
 from .core.ir import Reaction, Species
 from .core.mech import Mechanism, get_species_mappings
 from .core.pack import PackedMechanism, pack, packed_from_arrays
+from .integrate import IntegrateResult, ignition_delay, integrate
 from .ops.dydt import dydt, dydt_conp, dydt_conv, split_state
 from .ops.jacobian import (eval_jacobian, jacobian_and_dydt, jacobian_fwd,
                            jacobian_vector_product)
 from .ops.jacobian_big import BigJacobian
+from .ops.jacobian_dense import DenseJacobian
 from .ops.jacobian_sparse import SparseJacobian
 from .ops.rates import (compact_pres_mod, compact_rev, eval_kc, eval_kf,
                         eval_rxn_rates, eval_spec_rates, get_rxn_pres_mod,
@@ -43,12 +50,14 @@ from .ops.thermo import (eval_conc, eval_conc_rho, eval_cp, eval_cv,
 __version__ = '0.1.0'
 
 __all__ = [
-    'BigJacobian', 'Mechanism', 'MechanismError', 'PackedMechanism',
-    'Reaction', 'SparseJacobian', 'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
+    'BigJacobian', 'DenseJacobian', 'IntegrateResult', 'Mechanism',
+    'MechanismError', 'PackedMechanism', 'Reaction', 'SparseJacobian',
+    'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
     'dydt_conp', 'dydt_conv', 'eval_conc', 'eval_conc_rho', 'eval_cp',
     'eval_cv', 'eval_h', 'eval_jacobian', 'eval_kc', 'eval_kf',
     'eval_rxn_rates', 'eval_smh', 'eval_spec_rates', 'eval_u',
-    'get_rxn_pres_mod', 'get_species_mappings', 'jacobian_and_dydt',
+    'get_rxn_pres_mod', 'get_species_mappings', 'ignition_delay',
+    'integrate', 'jacobian_and_dydt',
     'jacobian_fwd', 'jacobian_vector_product', 'pack', 'packed_from_arrays',
     'rates_of_progress', 'read_mech', 'read_thermo', 'split_state',
     'third_body_concentrations',

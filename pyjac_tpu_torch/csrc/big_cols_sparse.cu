@@ -22,11 +22,12 @@
 // index, so the blocks of one state tile share its post rows in L2; the
 // thread walks nuc[j] as a CSR over species rows (the operand row of
 // each nonzero stored directly), finishes each row at once and keeps the
-// temperature-row sum in one register.
+// temperature-row sum in one register (`finish_column` in
+// csrc/kinetics.cuh, shared with K4).  The same kernel serves K2x, the
+// pre-gathered column kernel of the flagship pipeline
+// (`_kernel_dd_cols_x`, `SparseJacobian(fuse_gather=False)`).
 
-#include <cuda_runtime.h>
-
-#define AT(arr, r) (arr)[(size_t)(r) * (size_t)B + (size_t)b]
+#include "kinetics.cuh"
 
 __global__ void __launch_bounds__(128)
 big_cols_sparse_kernel(const int* __restrict__ col_ptr,
@@ -40,35 +41,8 @@ big_cols_sparse_kernel(const int* __restrict__ col_ptr,
   const int j = blockIdx.x;
   const long long b = (long long)blockIdx.y * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int J = N - 1;
-
-  // post rows (jacobian_sparse.post_rows)
-  const double* v_u = post;
-  const double* v_c = post + (size_t)N * B;
-  const double* eWn = post + (size_t)2 * N * B;
-  const double* cpr = post + (size_t)3 * N * B;
-  const double* fkJ = post + (size_t)4 * N * B;
-  const double* mr = post + (size_t)(4 * N + J) * B;
-  const double ish = AT(post, 4 * N + 2 * J);
-  const double mw_avg = AT(post, 4 * N + 2 * J + 1);
-  const double fT = AT(post, 4 * N + 2 * J + 2);
-
-  const double w_j = inv_mw[j];
-  const double u_j = w_j - inv_mw[N - 1];
-  const double r_j = conp ? -(mw_avg * u_j) : 0.0;
-  double* col = out + (size_t)j * N * B;
-
-  const int* ptr = col_ptr + (size_t)j * N;
-  double tsum = 0.0;
-  for (int n = 0; n < N; ++n) {
-    double acc = 0.0;
-    for (int e = ptr[n]; e < ptr[n + 1]; ++e)
-      acc += col_coef[e] * AT(p1c, col_src[e]);
-    const double dcol = acc * w_j + AT(v_u, n) * u_j + AT(v_c, n);
-    tsum += AT(eWn, n) * dcol;
-    if (n < J) AT(col, 1 + n) = AT(mr, n) * dcol - AT(fkJ, n) * r_j;
-  }
-  AT(col, 0) = -tsum - fT * (r_j + (AT(cpr, j) - AT(cpr, N - 1)) * ish);
+  finish_column(col_ptr + (size_t)j * N, col_src, col_coef, inv_mw, p1c, post,
+                out + (size_t)j * N * B, j, N, conp, B, b);
 }
 
 // col_ptr ((N-1)*N + 1), col_src / col_coef the CSR of nuc over the

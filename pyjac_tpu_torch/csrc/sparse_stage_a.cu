@@ -36,14 +36,9 @@
 // Lindemann and Troe falloff (with and without T2), integer
 // stoichiometry.  The Python wrapper refuses any other category.
 
-#include <cuda_runtime.h>
+#include "kinetics.cuh"
 
 #include <cstring>
-
-#define MAX_SLOTS 8
-#define RU 8314.4621
-#define LN10 2.302585092994046
-#define TINY 1.0e-300
 
 // matches the numpy table order of jacobian_sparse.stage_a_tables
 struct StageATables {
@@ -69,18 +64,6 @@ struct StageADims {
 // kind codes (jacobian_sparse.KIND_*)
 #define KIND_THD 1
 #define KIND_TROE 3
-
-__device__ __forceinline__ double ipow(double c, int k) {
-  // c^k as repeated multiplication, left to right (the plain version's
-  // unrolled integer powers)
-  if (k <= 0) return 1.0;
-  double acc = c;
-  for (int i = 1; i < k; ++i) acc = acc * c;
-  return acc;
-}
-
-// row r of a batch-minor (rows, B) array at state b
-#define AT(arr, r) (arr)[(size_t)(r) * (size_t)B + (size_t)b]
 
 __global__ void __launch_bounds__(128)
 sparse_stage_a_kernel(StageATables t, StageADims d, const double* __restrict__ y,
@@ -141,24 +124,11 @@ sparse_stage_a_kernel(StageATables t, StageADims d, const double* __restrict__ y
     const double Yn = n < J ? AT(y, 1 + n) : yN;
     AT(conc, n) = rho * Yn * t.inv_mw[n];
     const double* a = (T <= t.T_mid[n] ? t.a_lo : t.a_hi) + 7 * n;
-    const double RW = RU * t.inv_mw[n];
-    const double cpR = a[0] + T * (a[1] + T * (a[2] + T * (a[3] + a[4] * T)));
-    double cp, e;
-    if (conp) {
-      cp = RW * cpR;
-      e = RW * (a[5] + T * (a[0] + T * (a[1] / 2.0 + T * (
-               a[2] / 3.0 + T * (a[3] / 4.0 + a[4] / 5.0 * T)))));
-    } else {
-      cp = RW * (cpR - 1.0);
-      e = RW * (a[5] + T * (a[0] - 1.0 + T * (a[1] / 2.0 + T * (
-               a[2] / 3.0 + T * (a[3] / 4.0 + a[4] / 5.0 * T)))));
-    }
-    AT(smh, n) = a[0] * (logT - 1.0) + T * (a[1] / 2.0 + T * (
-        a[2] / 6.0 + T * (a[3] / 12.0 + a[4] / 20.0 * T))) - a[5] / T + a[6];
-    AT(dsmh, n) = a[0] / T + a[1] / 2.0 + T * (a[2] / 3.0 + T * (
-        a[3] / 4.0 + a[4] / 5.0 * T)) + a[5] / (T * T);
-    const double dcp = RW * (a[1] + T * (2.0 * a[2] + T * (3.0 * a[3] +
-                                                            4.0 * a[4] * T)));
+    double cp, e, smh_n, dsmh_n, dcp;
+    species_thermo(a, RU * t.inv_mw[n], T, logT, conp, cp, e, smh_n, dsmh_n,
+                   dcp);
+    AT(smh, n) = smh_n;
+    AT(dsmh, n) = dsmh_n;
     AT(cpr, n) = cp;
     AT(hrow, n) = e;
     AT(dcpr, n) = dcp;

@@ -1,10 +1,10 @@
 """Compressed ("touched") sparse Jacobian + dy/dt pipeline in float64.
 
 PyTorch port of ``pyjac_tpu.ops.pallas_dd.PallasDDJacobianSparse``
-with ``fuse_gather=True`` (``pallas_dd.py:2255-2527``), the flagship's
-main path.  Two stages, each a hand-written CUDA kernel on the card
-(``csrc/sparse_stage_a.cu``, ``csrc/sparse_stage_b.cu``, launched from
-:mod:`.kernels`) with its plain PyTorch version in this module:
+(``pallas_dd.py:2255-2527``), the flagship's main path.  Two stages, each
+a hand-written CUDA kernel on the card (``csrc/sparse_stage_a.cu``,
+``csrc/sparse_stage_b.cu``, launched from :mod:`.kernels`) with its plain
+PyTorch version in this module:
 
 * **stage A** (:func:`stage_a_reference`; TPU kernel ``_kernel_dd_src``)
   — per state: thermo, rates, pressure modification, per-slot assembly
@@ -17,7 +17,13 @@ main path.  Two stages, each a hand-written CUDA kernel on the card
   ``_kernel_dd_cols_fused``) — per reduced-species column j: gather the
   column's role rows ``gidx[j]`` of the source array, contract them with
   the column's signed stoichiometry ``nuc[j]`` (N x Rmax instead of the
-  dense N x R), scale by 1/W_j and finish with ``_post_col``.
+  dense N x R), scale by 1/W_j and finish with ``_post_col``.  With
+  ``fuse_gather=False`` the gather is its own step (``stage_gather``, a
+  torch index as the TPU pipeline's ``jnp.take``) and the columns come
+  from the pre-gathered operand through K2x (TPU kernel
+  ``_kernel_dd_cols_x``), which is K6's kernel
+  (``csrc/big_cols_sparse.cu``) on this module's tables; its plain
+  version is :func:`stage_b_reference` on the gathered operand.
 
 Differences from the TPU pipeline, all consequences of native f64:
 no double-float pairs, no sliced matmuls (``nuc`` holds the true signed
@@ -394,7 +400,13 @@ def post_col_reference(dcol, cols, inv_mw, post, conp: bool = True):
 
 class SparseJacobian(nn.Module):
     """f64 analytical Jacobian + dy/dt through the compressed-column
-    pipeline — the port of ``PallasDDJacobianSparse(fuse_gather=True)``.
+    pipeline — the port of ``PallasDDJacobianSparse``.
+
+    ``fuse_gather=True`` (the default here, the card's measured path)
+    gathers each column's operand inside the stage-B kernel K2;
+    ``fuse_gather=False`` (the JAX package's default) gathers it first
+    with a torch index and runs K2x on the result.  Both give the same
+    J.
 
     The mechanism tables are registered buffers, so ``.to(device)``
     moves them.  On CUDA tensors every call launches the two kernels of
@@ -404,11 +416,13 @@ class SparseJacobian(nn.Module):
     (:func:`kernel_unsupported`).
     """
 
-    def __init__(self, packed, conp: bool = True, device='cuda'):
+    def __init__(self, packed, conp: bool = True, fuse_gather: bool = True,
+                 device='cuda'):
         super().__init__()
         device = entry_device(device)
         self.packed = packed
         self.conp = bool(conp)
+        self.fuse_gather = bool(fuse_gather)
         ct = column_tables(packed)
         self.N, self.R, self.J = ct['N'], ct['R'], ct['J']
         self.Sf, self.Sp, self.S_eff = ct['Sf'], ct['Sp'], ct['S_eff']
@@ -421,6 +435,12 @@ class SparseJacobian(nn.Module):
             np.asarray(packed.inv_mw, np.float64)))
         for name in ('col_ptr', 'col_src', 'col_coef'):
             self.register_buffer(name, torch.as_tensor(ct[name]))
+        if not self.fuse_gather:
+            # K2x's CSR over the rows of the gathered operand
+            rows = np.arange(self.J * self.Rmax).reshape(self.J, self.Rmax)
+            for name, arr in zip(('kx_ptr', 'kx_src', 'kx_coef'),
+                                 column_csr(ct['nuc'], rows)):
+                self.register_buffer(name, torch.as_tensor(arr))
         for name, arr in stage_a_tables(packed, ct).items():
             self.register_buffer('ka_' + name, torch.as_tensor(arr))
         self.to(device)
@@ -459,13 +479,32 @@ class SparseJacobian(nn.Module):
         from . import kernels
         return kernels.stage_b(self, src, post)
 
+    def stage_gather(self, src):
+        """The pre-gathered column operand (J * Rmax, B) of the
+        ``fuse_gather=False`` path: rows ``gidx`` of the source stack."""
+        return src[self.gidx.reshape(-1)]
+
+    def stage_b_x(self, p1, post):
+        """Stage B on the pre-gathered operand ``p1`` (K2x): the
+        (J, N, B) Jacobian columns 1..J."""
+        if p1.device.type == 'cpu':
+            rows = torch.arange(self.J * self.Rmax).reshape(self.J, self.Rmax)
+            return stage_b_reference(rows, self.nuc, self.inv_mw, p1, post,
+                                     self.conp)
+        from . import kernels
+        return kernels.stage_b_x(self, p1, post)
+
     def call_tr(self, y_t, P_t):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B) float64
         tensors on the module's device.  Returns the Jacobian columns
         1..J (J, N, B), the temperature column ``col0`` (N, B) and
         dy/dt ``f`` (N, B)."""
         a = self.stage_a(y_t, P_t)
-        return self.stage_b(a['src'], a['post']), a['col0'], a['f']
+        if self.fuse_gather:
+            cols = self.stage_b(a['src'], a['post'])
+        else:
+            cols = self.stage_b_x(self.stage_gather(a['src']), a['post'])
+        return cols, a['col0'], a['f']
 
     def forward(self, y, P):
         """Batch-major: ``y`` (B, N), ``P`` scalar or (B,) -> ``J``

@@ -34,7 +34,9 @@ from .common import F64
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
-           'big_cols_sparse.cu', 'big_cols_dense.cu')
+           'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu')
+# device code the sources include (part of the build's hash)
+HEADERS = ('kinetics.cuh',)
 ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # -fmad=false: no multiply-add contraction, so each kernel operation
 # rounds like the plain version's separate torch ops (near equilibrium
@@ -43,8 +45,8 @@ NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
                      '-fPIC', '-Xptxas', '-v')
 
 # plain launch counters: one per kernel, bumped where it launches
-launches = {'stage_a': 0, 'stage_b': 0, 'big_parts': 0,
-            'big_cols_sparse': 0, 'big_cols_dense': 0}
+launches = {'stage_a': 0, 'stage_b': 0, 'stage_b_x': 0, 'big_parts': 0,
+            'big_cols_sparse': 0, 'big_cols_dense': 0, 'dense_fused': 0}
 
 # what the last build did: seconds, library path, nvcc's output
 build_info = {}
@@ -105,7 +107,7 @@ def load():
         return _lib
     srcs = [CSRC / s for s in SOURCES]
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [CSRC / x for x in HEADERS]:
         h.update(s.read_bytes())
     tag = h.hexdigest()[:16]
     out = build_dir() / ('libpyjac_kernels_%s.so' % tag)
@@ -148,6 +150,13 @@ def load():
     lib.pyjac_big_cols_dense.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                          vp, ci, ci, ci, ci, ci, cll, vp]
     lib.pyjac_big_cols_dense.restype = ci
+    lib.pyjac_dense_fused_n_tables.argtypes = []
+    lib.pyjac_dense_fused_n_tables.restype = ci
+    lib.pyjac_dense_fused_scratch_rows.argtypes = [vp]
+    lib.pyjac_dense_fused_scratch_rows.restype = cll
+    lib.pyjac_dense_fused.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll, vp, vp,
+                                      vp, vp]
+    lib.pyjac_dense_fused.restype = ci
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
@@ -297,28 +306,49 @@ def big_parts(mod, st_rows, roles, row0: int, rows: int, has_pm: bool):
     return roles
 
 
+def stage_b_x(mod, p1, post):
+    """Launch the K2x column kernel for the tables of ``mod`` (a
+    ``SparseJacobian(fuse_gather=False)``): the (J, N, B) columns from
+    the pre-gathered operand ``p1`` (J * Rmax, B) and stage A's post
+    rows.  K2x is K6's kernel (``csrc/big_cols_sparse.cu``) on the
+    module's CSR over operand rows."""
+    return _cols_sparse(mod, p1, post, 'kx_', 'stage_b_x',
+                        'K2x column kernel')
+
+
 def big_cols_sparse(mod, p1c, post):
     """Launch the K6 kernel (``csrc/big_cols_sparse.cu``) for the tables
     of ``mod`` (a ``BigJacobian`` with ``sparse_cols``): the (J, N, B)
     columns from the compressed operand ``p1c`` (J * Rmax, B) and the
     post rows."""
-    dev, N, J, B = p1c.device, mod.N, mod.J, p1c.shape[-1]
-    _check('p1c', p1c, (J * mod.Rmax, B), F64, dev)
+    return _cols_sparse(mod, p1c, post, 'ks_', 'big_cols_sparse',
+                        'K6 sparse column kernel')
+
+
+def _cols_sparse(mod, p1, post, prefix, name, what):
+    """K6's kernel on the CSR tables ``prefix + {ptr, src, coef}`` of
+    ``mod`` over the rows of ``p1`` (J * Rmax, B); counts under
+    ``name``."""
+    dev, N, J, B = p1.device, mod.N, mod.J, p1.shape[-1]
+    _check('p1', p1, (J * mod.Rmax, B), F64, dev)
     _check('post', post, (mod.n_post, B), F64, dev)
-    for name, want, shape in (('ks_ptr', torch.int32, (J * N + 1,)),
-                              ('ks_src', torch.int32, mod.ks_src.shape),
-                              ('ks_coef', F64, mod.ks_src.shape),
-                              ('inv_mw', F64, (N,))):
-        _check('BigJacobian.' + name, getattr(mod, name), shape, want, dev)
+    ptr, src, coef = (getattr(mod, prefix + k) for k in ('ptr', 'src', 'coef'))
+    owner = type(mod).__name__ + '.'
+    for tname, t, want, shape in ((prefix + 'ptr', ptr, torch.int32,
+                                   (J * N + 1,)),
+                                  (prefix + 'src', src, torch.int32,
+                                   src.shape),
+                                  (prefix + 'coef', coef, F64, src.shape),
+                                  ('inv_mw', mod.inv_mw, F64, (N,))):
+        _check(owner + tname, t, shape, want, dev)
     lib = load()
     out = torch.empty((J, N, B), dtype=F64, device=dev)
     with torch.cuda.device(dev):
         err = lib.pyjac_big_cols_sparse(
-            _ptr(mod.ks_ptr), _ptr(mod.ks_src), _ptr(mod.ks_coef),
-            _ptr(mod.inv_mw), _ptr(p1c), _ptr(post), _ptr(out), N,
-            int(mod.conp), B, _stream(dev))
-    _raise_on(err, 'K6 sparse column kernel')
-    launches['big_cols_sparse'] += 1
+            _ptr(ptr), _ptr(src), _ptr(coef), _ptr(mod.inv_mw), _ptr(p1),
+            _ptr(post), _ptr(out), N, int(mod.conp), B, _stream(dev))
+    _raise_on(err, what)
+    launches[name] += 1
     return out
 
 
@@ -350,3 +380,48 @@ def big_cols_dense(mod, roles, post):
     _raise_on(err, 'K7 dense column kernel')
     launches['big_cols_dense'] += 1
     return out
+
+
+def dense_fused(mod, y_t, P_t):
+    """Launch the K4 kernel (``csrc/dense_fused.cu``) for the tables of
+    ``mod`` (a ``DenseJacobian``) on (N, B) states and a (1, B)
+    pressure/density row: returns ``Jt`` (N, N, B), [column, row,
+    batch], and dy/dt ``f`` (N, B)."""
+    from .rates import _LN_PA_RU
+    from .jacobian_big import PARTS_INT_TABLES
+    from .jacobian_dense import FUSED_INT_TABLES
+    dev, N, B = y_t.device, mod.N, y_t.shape[-1]
+    _check('y_t', y_t, (N, B), F64, dev)
+    _check('P_t', P_t, (1, B), F64, dev)
+    # the kp_ then kf_ buffers, in registration order = the C struct's
+    names = ([k for k in mod._buffers if k.startswith('kp_')] +
+             [k for k in mod._buffers if k.startswith('kf_')])
+    tabs = [mod._buffers[k] for k in names]
+    for k, t in zip(names, tabs):
+        want = (torch.int32 if k[3:] in PARTS_INT_TABLES + FUSED_INT_TABLES
+                else F64)
+        _check('DenseJacobian.' + k, t, t.shape, want, dev)
+    lib = load()
+    if lib.pyjac_dense_fused_n_tables() != len(tabs):
+        raise RuntimeError('K4 table count mismatch: %d in Python, %d in the '
+                           'kernel' % (len(tabs),
+                                       lib.pyjac_dense_fused_n_tables()))
+    p = mod.packed
+    NT, NP = p.cheb_coef.shape[1:]
+    dims = [N, mod.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
+            p.plog_lnP.shape[1], NT, NP, int(mod.conp), int(p.has_frac_nu),
+            int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
+    cdims = (ctypes.c_int * len(dims))(*dims)
+    Jt = torch.empty((N, N, B), dtype=F64, device=dev)
+    f = torch.empty((N, B), dtype=F64, device=dev)
+    scratch = torch.empty((lib.pyjac_dense_fused_scratch_rows(cdims), B),
+                          dtype=F64, device=dev)
+    ptrs = (ctypes.c_void_p * len(tabs))(*[t.data_ptr() for t in tabs])
+    with torch.cuda.device(dev):
+        err = lib.pyjac_dense_fused(ptrs, len(tabs), cdims, len(dims),
+                                    _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
+                                    _ptr(Jt), _ptr(f), _ptr(scratch),
+                                    _stream(dev))
+    _raise_on(err, 'K4 dense fused kernel')
+    launches['dense_fused'] += 1
+    return Jt, f

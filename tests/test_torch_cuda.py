@@ -16,8 +16,12 @@ from pyjac_tpu_torch.core.constants import RU
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
+from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate
 from pyjac_tpu_torch.ops.jacobian_big import BigJacobian
-from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian
+from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian, dense_reference
+from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
+                                                 stage_a_reference,
+                                                 stage_b_reference)
 from pyjac_tpu_torch.testers.synthetic import (flagship, packed_from_text,
                                                random_states,
                                                synthetic_mechanism)
@@ -52,8 +56,9 @@ def test_kernels_match_cpu_on_card(card):
     kernels.reset_launches()
     J, f = SparseJacobian(p, device=card)(g['y'], g['P'])
     torch.cuda.synchronize(card)
-    assert kernels.launches == {'stage_a': 1, 'stage_b': 1, 'big_parts': 0,
-                                'big_cols_sparse': 0, 'big_cols_dense': 0}
+    assert kernels.launches == {'stage_a': 1, 'stage_b': 1, 'stage_b_x': 0,
+                                'big_parts': 0, 'big_cols_sparse': 0,
+                                'big_cols_dense': 0, 'dense_fused': 0}
     assert J.device == card and J.dtype == torch.float64
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -160,3 +165,97 @@ def test_big_reassigned_table_on_card(card):
     torch.cuda.empty_cache()
     J2, f2 = bj(y, P)
     assert torch.equal(J1, J2) and torch.equal(f1, f2)
+
+
+# ---------------------------------------------------------------------------
+# the dense fused kernel K4, K2x and the integrator
+# ---------------------------------------------------------------------------
+
+def _density(p, y, P):
+    """Each state's own density (CONV takes density)."""
+    Yf = np.concatenate([y[:, 1:], 1.0 - y[:, 1:].sum(1, keepdims=True)], 1)
+    return P / (RU * y[:, 0] * (Yf * p.inv_mw).sum(1))
+
+
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+@pytest.mark.parametrize('conp', [True, False])
+def test_dense_fused_matches_plain_on_card(card, name, conp):
+    """K4 launches once per call and agrees with ``dense_reference`` on
+    the same inputs on the card: J floored@1e-10 < 1e-9, dy/dt
+    norm-relative per state < 1e-8 (333 flagship states, 1000 synth
+    states: no multiple of a block)."""
+    if name == 'flagship':
+        _, p = flagship()
+        d = np.load(DATA / 'flagship_states.npz')
+        y, P = d['y'][:333], d['P'][:333]
+    else:
+        _, p = packed_from_text(synthetic_mechanism(n_species=9,
+                                                    n_reactions=24, seed=7))
+        y, _, P = random_states(p.mech, 1000, seed=3)
+    if not conp:
+        P = _density(p, y, P)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), device=card)
+    dj = DenseJacobian(p, conp=conp, device=card)
+    kernels.reset_launches()
+    Jt, f = dj.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert kernels.launches['dense_fused'] == 1
+    Jr, fr = dense_reference(p, y_t, P_t, conp)
+    n = y.shape[0]
+    Jt, Jr = Jt.permute(2, 1, 0).cpu().numpy(), Jr.permute(2, 1, 0).cpu()
+    assert _floored(Jt, Jr.numpy(), 1e-10) < 1e-9
+    f, fr = f.T.cpu().numpy(), fr.T.cpu().numpy()
+    assert f.shape == (n, p.n_species)
+    assert (np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max() < 1e-8
+
+
+def test_stage_b_x_matches_plain_on_card(card):
+    """``SparseJacobian(fuse_gather=False)`` runs K1, the gather and K2x
+    (not K2); K2x agrees with ``stage_b_reference`` on the same stage-A
+    outputs and with the fused path's J."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y_t = torch.as_tensor(d['y'][:1000].T.copy(), device=card)
+    P_t = torch.as_tensor(d['P'][None, :1000].copy(), device=card)
+    sx = SparseJacobian(p, fuse_gather=False, device=card)
+    kernels.reset_launches()
+    cols, _, _ = sx.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert (kernels.launches['stage_a'], kernels.launches['stage_b'],
+            kernels.launches['stage_b_x']) == (1, 0, 1)
+    a = stage_a_reference(p, y_t, P_t)
+    got = sx.stage_b_x(sx.stage_gather(a['src']), a['post'])
+    ref = stage_b_reference(sx.gidx, sx.nuc, sx.inv_mw, a['src'], a['post'])
+    assert _floored(got.permute(2, 0, 1).cpu().numpy(),
+                    ref.permute(2, 0, 1).cpu().numpy(), 1e-10) < 1e-9
+    fused, _, _ = SparseJacobian(p, device=card).call_tr(y_t, P_t)
+    assert _floored(cols.permute(2, 0, 1).cpu().numpy(),
+                    fused.permute(2, 0, 1).cpu().numpy(), 1e-10) < 1e-9
+
+
+@pytest.mark.parametrize('method', ['ros23', 'rodas3'])
+def test_integrate_dd_matches_xla_on_card(card, method):
+    """A short integration on the card: ``jacobian='dd'`` launches K4 once
+    per loop iteration and takes the same steps as ``jacobian='xla'``,
+    with endpoints floored@1e-10 within 1e-9."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:64], d['P'][:64]
+    kernels.reset_launches()
+    rd = integrate(p, y, P, 1e-5, jacobian='dd', method=method)
+    assert kernels.launches['dense_fused'] == rd.iterations > 0
+    rx = integrate(p, y, P, 1e-5, jacobian='xla', method=method)
+    assert rd.y.device == card
+    assert bool((rd.status == STATUS_SUCCESS).all())
+    assert torch.equal(rd.steps, rx.steps)
+    assert torch.equal(rd.rejected, rx.rejected)
+    assert _floored(rd.y.cpu().numpy(), rx.y.cpu().numpy(), 1e-10) < 1e-9
+
+
+def test_dense_launcher_refuses_cpu_tensors(card):
+    _, p = flagship()
+    dj = DenseJacobian(p, device=card)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.dense_fused(dj, torch.zeros((dj.N, 4), dtype=torch.float64),
+                            torch.ones((1, 4), dtype=torch.float64))

@@ -1,0 +1,234 @@
+"""The port's stiff integrator (``pyjac_tpu_torch.integrate``) against the
+JAX package's, on the CPU.
+
+Both sides integrate the same numpy inputs: flagship PaSR states from
+``tests/data/flagship_states.npz`` (the JAX package's own integrator
+tests use h2o2, whose ``.cti`` is not in the repository).  The JAX side
+runs its ``jacobian='xla'`` path, the one JAX runs on the CPU; the port
+runs both ``jacobian='xla'`` (the plain f64 ``eval_jacobian``) and
+``jacobian='dd'`` (``DenseJacobian``, whose plain version runs on the
+CPU).  The flagship is parsed by the JAX package and carried over with
+``packed_from_arrays``.
+
+Readings (x86-64 CPU, float64): both methods and both port Jacobians
+take exactly JAX's accepted and rejected steps and status on every state
+(8 PaSR states over 1e-5 s: 10-11 steps; 4 states heated by 300 K:
+199-212 steps with 6 rejections each under ROS23); endpoints
+floored@1e-10 agree to 5e-15 - 8e-14.
+"""
+
+import dataclasses
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyjac_tpu.core.mech import Mechanism as JMechanism
+from pyjac_tpu.core.pack import pack as jpack
+from pyjac_tpu.integrate import ignition_delay as jignition_delay
+from pyjac_tpu.integrate import integrate as jintegrate
+from pyjac_tpu.testers.synthetic import (plausible_mechanism,
+                                         synthetic_mechanism)
+from pyjac_tpu_torch.core.mech import Mechanism
+from pyjac_tpu_torch.core.pack import packed_from_arrays
+from pyjac_tpu_torch.integrate import (STATUS_BUDGET, STATUS_SUCCESS,
+                                       ignition_delay, integrate,
+                                       lu_factor, lu_solve)
+
+torch.set_num_threads(1)
+
+DATA = pathlib.Path(__file__).parent / 'data'
+
+# flagship PaSR states that reject steps once heated by 300 K
+HOT = [0, 3, 5, 7]
+
+_CACHE = {}
+
+
+def _mech(tmp_path_factory, name='flagship'):
+    """(JAX packed, port packed from the JAX arrays)."""
+    if name not in _CACHE:
+        text = (plausible_mechanism(53, 325, seed=42) if name == 'flagship'
+                else synthetic_mechanism(n_species=9, n_reactions=24, seed=7))
+        path = tmp_path_factory.mktemp(name) / 'm.inp'
+        path.write_text(text)
+        jp = jpack(JMechanism.from_files(str(path)))
+        fields = {k: getattr(jp, k) for k in jp.__dataclass_fields__
+                  if k != 'mech'}
+        _CACHE[name] = (jp, packed_from_arrays(
+            fields, Mechanism.from_files(str(path))))
+    return _CACHE[name]
+
+
+def _states(idx=slice(0, 8), heat=0.0):
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][idx].copy(), d['P'][idx].copy()
+    y[:, 0] += heat
+    return y, P
+
+
+def _floored(a, b, floor=1e-10):
+    """Endpoint metric: floored at ``floor`` of each state's largest
+    entry."""
+    a, b = np.asarray(a), np.asarray(b)
+    denom = np.maximum(np.abs(b),
+                       np.abs(b).max(-1, keepdims=True) * floor + 1e-300)
+    return float((np.abs(a - b) / denom).max())
+
+
+def _same_run(res, jres):
+    """Equal accepted / rejected counts and status per state, endpoints
+    within 1e-9 floored@1e-10."""
+    for k in ('steps', 'rejected', 'status'):
+        assert np.array_equal(getattr(res, k).numpy(),
+                              np.asarray(getattr(jres, k))), k
+    assert np.array_equal(res.t.numpy(), np.asarray(jres.t))
+    assert _floored(res.y.numpy(), jres.y) <= 1e-9
+
+
+@pytest.fixture(scope='module')
+def jax_runs(tmp_path_factory):
+    """JAX integrate results, computed once per (case, method)."""
+    jp, _ = _mech(tmp_path_factory)
+    cases = {'pasr': _states(), 'hot': _states(HOT, 300.0)}
+    out = {}
+
+    def run(case, method):
+        if (case, method) not in out:
+            y, P = cases[case]
+            out[case, method] = jintegrate(jp, jnp.asarray(y), jnp.asarray(P),
+                                           1e-5, method=method)
+        return out[case, method]
+    return run
+
+
+@pytest.mark.parametrize('method', ['ros23', 'rodas3'])
+@pytest.mark.parametrize('jacobian', ['xla', 'dd'])
+def test_pasr_states_match_jax(tmp_path_factory, jax_runs, method, jacobian):
+    """8 flagship PaSR states over 1e-5 s: the same steps, rejections and
+    status per state as JAX's integrate, endpoints <= 1e-9 floored."""
+    _, p = _mech(tmp_path_factory)
+    y, P = _states()
+    res = integrate(p, y, P, 1e-5, jacobian=jacobian, method=method,
+                    device='cpu')
+    assert bool((res.status == STATUS_SUCCESS).all())
+    assert res.iterations == int(res.steps.max() + res.rejected.max())
+    _same_run(res, jax_runs('pasr', method))
+
+
+@pytest.mark.parametrize('jacobian', ['xla', 'dd'])
+def test_rejection_path_matches_jax(tmp_path_factory, jax_runs, jacobian):
+    """4 PaSR states heated by 300 K over 1e-5 s under ROS23: ~200 steps
+    with 6 rejected steps each, equal to JAX's per state."""
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(HOT, 300.0)
+    res = integrate(p, y, P, 1e-5, jacobian=jacobian, device='cpu')
+    assert bool((res.rejected == 6).all())
+    _same_run(res, jax_runs('hot', 'ros23'))
+
+
+def test_status_codes_and_per_state_budget(tmp_path_factory):
+    """``max_steps`` is a per-state attempt budget: 3 attempts over 1e-3 s
+    leave every state at STATUS_BUDGET with at most 3 attempts."""
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(slice(0, 4), 300.0)
+    res = integrate(p, y, P, 1e-3, max_steps=3, device='cpu')
+    assert not bool(res.success.any())
+    assert bool((res.status == STATUS_BUDGET).all())
+    assert int((res.steps + res.rejected).max()) <= 3
+
+
+def test_trivial_interval(tmp_path_factory):
+    """A near-zero interval: success at once, state unchanged."""
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(slice(0, 1))
+    res = integrate(p, y, P, 1e-12, device='cpu')
+    assert bool(res.success.all())
+    np.testing.assert_allclose(res.y.numpy(), y, rtol=1e-6, atol=1e-12)
+
+
+def test_mixed_horizons(tmp_path_factory):
+    """Per-state t_end: each state stops at its own horizon, where it
+    ends as if integrated alone."""
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(slice(0, 1), 300.0)
+    y, P = np.repeat(y, 3, 0), np.repeat(P, 3)
+    t_end = np.array([1e-9, 1e-8, 1e-7])
+    res = integrate(p, y, P, t_end, rtol=1e-7, device='cpu')
+    assert bool(res.success.all())
+    np.testing.assert_allclose(res.t.numpy(), t_end, rtol=1e-12)
+    for i in range(3):
+        alone = integrate(p, y[i:i + 1], P[i:i + 1], t_end[i], rtol=1e-7,
+                          device='cpu')
+        assert int(alone.steps[0]) == int(res.steps[i])
+        assert _floored(res.y[i:i + 1].numpy(), alone.y.numpy()) < 1e-12
+    assert _floored(res.y[:1].numpy(), res.y[2:].numpy()) > 1e-6
+
+
+def test_unknown_options_raise(tmp_path_factory):
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(slice(0, 1))
+    with pytest.raises(ValueError, match='unknown method'):
+        integrate(p, y, P, 1e-6, method='bdf', device='cpu')
+    with pytest.raises(ValueError, match='unknown jacobian'):
+        integrate(p, y, P, 1e-6, jacobian='fd', device='cpu')
+
+
+def test_dd_has_no_fallback(tmp_path_factory):
+    """``jacobian='dd'`` on a mechanism ``DenseJacobian`` refuses (a
+    sign-flipping PLOG table) raises instead of switching to XLA."""
+    _, p = _mech(tmp_path_factory, 'synth')
+    sign = np.array(p.plog_sign)
+    sign[0, 0] = -1.0
+    bad = dataclasses.replace(p, plog_sign=sign)
+    y = np.concatenate([[1200.0], np.full(p.n_species - 1, 0.1)])[None]
+    with pytest.raises(NotImplementedError, match='PLOG'):
+        integrate(bad, y, [101325.0], 1e-6, jacobian='dd', device='cpu')
+
+
+def test_default_device_is_the_card(tmp_path_factory):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present')
+    _, p = _mech(tmp_path_factory)
+    y, P = _states(slice(0, 1))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        integrate(p, y, P, 1e-6)
+
+
+def test_ignition_delay_matches_jax(tmp_path_factory):
+    """The bisection on 2 heated states (T rises ~2 K within 1e-8 s) with
+    a 1 K threshold and ``n_points=4`` gives JAX's delays."""
+    jp, p = _mech(tmp_path_factory)
+    y, P = _states([0, 3], 300.0)
+    got = ignition_delay(p, y, P, 1e-8, threshold=1.0, n_points=4,
+                         device='cpu')
+    ref = jignition_delay(jp, jnp.asarray(y), jnp.asarray(P), 1e-8,
+                          threshold=1.0, n_points=4)
+    assert got.shape == (2,) and (got > 0).all() and (got < 1e-8).all()
+    assert np.array_equal(got, np.asarray(ref))
+
+
+def test_lu_solve_matches_numpy():
+    """The iteration-matrix factor and solve against numpy's LAPACK
+    solve, a zero on the diagonal (pivoting), and a singular matrix,
+    whose solve is not finite and whose factor is flagged."""
+    rng = np.random.default_rng(7)
+    for n in (3, 10, 53):
+        A = rng.standard_normal((8, n, n)) + n * np.eye(n)
+        b = rng.standard_normal((8, n))
+        fac = lu_factor(torch.as_tensor(A))
+        assert bool(fac[2].all())
+        x = lu_solve(fac, torch.as_tensor(b)).numpy()
+        x_ref = np.linalg.solve(A, b[..., None])[..., 0]
+        assert np.max(np.abs(x - x_ref)) < 1e-12
+    A = torch.tensor([[[0.0, 1.0], [1.0, 0.0]]], dtype=torch.float64)
+    x = lu_solve(lu_factor(A), torch.tensor([[2.0, 3.0]],
+                                            dtype=torch.float64))
+    np.testing.assert_allclose(x.numpy(), [[3.0, 2.0]], atol=1e-14)
+    S = torch.tensor([[[1.0, 2.0], [2.0, 4.0]]], dtype=torch.float64)
+    fac = lu_factor(S)
+    assert not bool(fac[2].any())
+    x = lu_solve(fac, torch.tensor([[1.0, 1.0]], dtype=torch.float64))
+    assert not bool(torch.isfinite(x).all())

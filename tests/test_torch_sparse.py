@@ -250,6 +250,52 @@ def test_slice_matches_plain_jacobian(synth, conp):
     assert _norm_rel(f.numpy(), f0.numpy()) < 1e-12
 
 
+# ---------------------------------------------------------------------------
+# fuse_gather=False: the gather, then K2x
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+def test_unfused_gather_is_bit_equal(flagship, synth, name):
+    """``fuse_gather=False`` (gather, then K2x's plain version) gives J
+    and f bit-equal to the fused path on the CPU."""
+    _, p, g = flagship if name == 'flagship' else synth
+    y, P = g['y'][:32], g['P'][:32]
+    J1, f1 = SparseJacobian(p, device='cpu')(y, P)
+    J0, f0 = SparseJacobian(p, fuse_gather=False, device='cpu')(y, P)
+    assert torch.equal(J0, J1) and torch.equal(f0, f1)
+
+
+def test_stage_gather_matches_jax_take(tmp_path):
+    """The unfused path's operand is the JAX pipeline's ``stage_gather``
+    (``jnp.take`` of the source stack at the expanded role table's rows)
+    on the 6/10 synth."""
+    from pyjac_tpu.ops.pallas_dd import _consts_dd, _sparse_col_pack_expanded
+    jm, jp, m, p = _both(tmp_path, synthetic_mechanism(
+        n_species=6, n_reactions=10, seed=7, gri_mix=True))
+    y, _, P = random_states(jm, 8)
+    src = stage_a_reference(p, torch.as_tensor(y.T.copy()),
+                            torch.as_tensor(P[None].copy()))['src']
+    _, meta = _consts_dd(jp, compact_pdep=True)
+    SC = _sparse_col_pack_expanded(jp, meta, jb=8)
+    J = p.n_species - 1
+    ref = jnp.take(jnp.asarray(src.numpy()),
+                   jnp.asarray(SC['gidx'][:J].reshape(-1)), axis=0)
+    sj = SparseJacobian(p, fuse_gather=False, device='cpu')
+    got = sj.stage_gather(src)
+    assert got.shape == (J * sj.Rmax, 8)
+    assert np.array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_k2x_launcher_refuses_cpu_tensors(flagship):
+    sj = SparseJacobian(flagship[1], fuse_gather=False, device='cpu')
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.stage_b_x(sj, torch.zeros((sj.J * sj.Rmax, 4),
+                                          dtype=torch.float64),
+                          torch.zeros((sj.n_post, 4), dtype=torch.float64))
+    assert kernels.launches == before and kernels._lib is None
+
+
 def test_chip_smoke_rehearsal_and_no_card(tmp_path):
     """Without a card ``chip_smoke.py`` fails before printing a result,
     both from the repository and alone in an empty directory."""
