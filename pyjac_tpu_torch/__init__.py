@@ -2,7 +2,9 @@
 
 The port of :mod:`pyjac_tpu` (JAX, Pallas kernels for the TPU) to
 PyTorch and hand-written CUDA kernels for the NVIDIA H100.  It computes
-in native float64 and imports neither JAX nor :mod:`pyjac_tpu`.
+in native float64, apart from the float32 throughput path
+``F32Jacobian`` (kernel K3), and imports neither JAX nor
+:mod:`pyjac_tpu`.
 
 Quick start::
 
@@ -25,6 +27,12 @@ Quick start::
     J, f = bj(y_batch, P_batch)
     dj = pjt.DenseJacobian(packed)      # K4, one fused launch
     J, f = dj(y_batch, P_batch)
+    fj = pjt.F32Jacobian(packed)        # K3: K4's kernel in float32
+    J32, f32 = fj(y_batch, P_batch)
+
+    # chunked evaluation of large batches (K1 + K2, or K4)
+    ev = pjt.BatchEvaluator(packed)
+    chk, stats = ev.jacobian_dd_resident(y_1m, P_1m, chunk_b=131072)
 
     # stiff integration (ROS23 / RODAS3) with the K4 stage Jacobian
     res = pjt.integrate(packed, y_batch, P_batch, 1e-4, jacobian='dd')
@@ -40,17 +48,20 @@ from .ops.jacobian import (eval_jacobian, jacobian_and_dydt, jacobian_fwd,
                            jacobian_vector_product)
 from .ops.jacobian_big import BigJacobian
 from .ops.jacobian_dense import DenseJacobian
+from .ops.jacobian_f32 import F32Jacobian
 from .ops.jacobian_sparse import SparseJacobian
 from .ops.rates import (compact_pres_mod, compact_rev, eval_kc, eval_kf,
                         eval_rxn_rates, eval_spec_rates, get_rxn_pres_mod,
                         rates_of_progress, third_body_concentrations)
 from .ops.thermo import (eval_conc, eval_conc_rho, eval_cp, eval_cv,
                          eval_h, eval_smh, eval_u)
+from .parallel.batch import BatchEvaluator
 
 __version__ = '0.1.0'
 
 __all__ = [
-    'BigJacobian', 'DenseJacobian', 'IntegrateResult', 'Mechanism',
+    'BatchEvaluator', 'BigJacobian', 'DenseJacobian', 'F32Jacobian',
+    'IntegrateResult', 'Mechanism',
     'MechanismError', 'PackedMechanism', 'Reaction', 'SparseJacobian',
     'Species', 'compact_pres_mod', 'compact_rev', 'dydt',
     'dydt_conp', 'dydt_conv', 'eval_conc', 'eval_conc_rho', 'eval_cp',

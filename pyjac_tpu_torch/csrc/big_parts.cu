@@ -39,11 +39,12 @@
 
 template <bool HAS_PM>
 __global__ void __launch_bounds__(128)
-big_parts_kernel(PartsTables t, PartsDims d, const double* __restrict__ st,
+big_parts_kernel(PartsTables<double> t, PartsDims<double> d,
+                 const double* __restrict__ st,
                  long long B, double* __restrict__ roles) {
   const long long b = (long long)blockIdx.y * blockDim.x + threadIdx.x;
   if (b >= B || blockIdx.x >= (unsigned)d.rows) return;
-  reaction_parts<HAS_PM>(t, d, st, B, b, d.row0 + blockIdx.x, roles);
+  reaction_parts<double, HAS_PM>(t, d, st, B, b, d.row0 + blockIdx.x, roles);
 }
 
 extern "C" int pyjac_big_parts_n_tables(void) { return N_TABLES; }
@@ -65,9 +66,9 @@ extern "C" int pyjac_big_parts(const void* const* tables, int n_tables,
   const int threads = 128;
   const long long tiles = (B + threads - 1) / threads;
   if (tiles > 65535) return -1;
-  PartsTables t;
+  PartsTables<double> t;
   std::memcpy(&t, tables, sizeof(t));
-  PartsDims d;
+  PartsDims<double> d;
   d.N = dims[0]; d.R = dims[1]; d.Sf = dims[2]; d.Sp = dims[3];
   d.Pm = dims[4]; d.NT = dims[5]; d.NP = dims[6]; d.conp = dims[7];
   d.has_frac = dims[8]; d.row0 = row0; d.rows = rows;

@@ -1,10 +1,12 @@
 """Shared helpers for the batched PyTorch kernels.
 
-Counterpart of ``pyjac_tpu/ops/common.py``.  The port always computes
-in float64 (the H100 has IEEE f64 in hardware), so there is no
+Counterpart of ``pyjac_tpu/ops/common.py``.  The port computes in
+float64 (the H100 has IEEE f64 in hardware), so there is no
 dtype-demotion switch: every packed float table becomes a
 ``torch.float64`` tensor and every index table a ``torch.int64``
-tensor on the requested device.
+tensor on the requested device.  The one float32 path, ``F32Jacobian``
+(``ops/jacobian_f32.py``), keeps its own tables and its own range guard
+(1e-30, not :data:`TINY`).
 """
 
 from __future__ import annotations

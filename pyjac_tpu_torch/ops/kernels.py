@@ -46,7 +46,8 @@ NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
 
 # plain launch counters: one per kernel, bumped where it launches
 launches = {'stage_a': 0, 'stage_b': 0, 'stage_b_x': 0, 'big_parts': 0,
-            'big_cols_sparse': 0, 'big_cols_dense': 0, 'dense_fused': 0}
+            'big_cols_sparse': 0, 'big_cols_dense': 0, 'dense_fused': 0,
+            'fused_f32': 0}
 
 # what the last build did: seconds, library path, nvcc's output
 build_info = {}
@@ -157,6 +158,8 @@ def load():
     lib.pyjac_dense_fused.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll, vp, vp,
                                       vp, vp]
     lib.pyjac_dense_fused.restype = ci
+    lib.pyjac_fused_f32.argtypes = lib.pyjac_dense_fused.argtypes
+    lib.pyjac_fused_f32.restype = ci
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
@@ -387,41 +390,59 @@ def dense_fused(mod, y_t, P_t):
     ``mod`` (a ``DenseJacobian``) on (N, B) states and a (1, B)
     pressure/density row: returns ``Jt`` (N, N, B), [column, row,
     batch], and dy/dt ``f`` (N, B)."""
+    return _dense(mod, y_t, P_t, F64, 'pyjac_dense_fused', 'dense_fused',
+                  'K4 dense fused kernel')
+
+
+def fused_f32(mod, y_t, P_t):
+    """Launch the K3 kernel, the float32 instantiation of K4's
+    (``csrc/dense_fused.cu``), for the tables of ``mod`` (an
+    ``F32Jacobian``) on float32 (N, B) states and a (1, B)
+    pressure/density row: returns float32 ``Jt`` (N, N, B), [column, row,
+    batch], and dy/dt ``f`` (N, B)."""
+    return _dense(mod, y_t, P_t, torch.float32, 'pyjac_fused_f32',
+                  'fused_f32', 'K3 f32 fused kernel')
+
+
+def _dense(mod, y_t, P_t, dtype, entry, name, what):
+    """K4's kernel in ``dtype`` through the C entry ``entry``; counts
+    under ``name``."""
     from .rates import _LN_PA_RU
     from .jacobian_big import PARTS_INT_TABLES
     from .jacobian_dense import FUSED_INT_TABLES
     dev, N, B = y_t.device, mod.N, y_t.shape[-1]
-    _check('y_t', y_t, (N, B), F64, dev)
-    _check('P_t', P_t, (1, B), F64, dev)
+    _check('y_t', y_t, (N, B), dtype, dev)
+    _check('P_t', P_t, (1, B), dtype, dev)
     # the kp_ then kf_ buffers, in registration order = the C struct's
     names = ([k for k in mod._buffers if k.startswith('kp_')] +
              [k for k in mod._buffers if k.startswith('kf_')])
     tabs = [mod._buffers[k] for k in names]
+    owner = type(mod).__name__ + '.'
     for k, t in zip(names, tabs):
         want = (torch.int32 if k[3:] in PARTS_INT_TABLES + FUSED_INT_TABLES
-                else F64)
-        _check('DenseJacobian.' + k, t, t.shape, want, dev)
+                else dtype)
+        _check(owner + k, t, t.shape, want, dev)
     lib = load()
     if lib.pyjac_dense_fused_n_tables() != len(tabs):
-        raise RuntimeError('K4 table count mismatch: %d in Python, %d in the '
-                           'kernel' % (len(tabs),
-                                       lib.pyjac_dense_fused_n_tables()))
+        raise RuntimeError('%s: table count mismatch: %d in Python, %d in '
+                           'the kernel' % (what, len(tabs),
+                                           lib.pyjac_dense_fused_n_tables()))
     p = mod.packed
     NT, NP = p.cheb_coef.shape[1:]
     dims = [N, mod.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
             p.plog_lnP.shape[1], NT, NP, int(mod.conp), int(p.has_frac_nu),
             int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
     cdims = (ctypes.c_int * len(dims))(*dims)
-    Jt = torch.empty((N, N, B), dtype=F64, device=dev)
-    f = torch.empty((N, B), dtype=F64, device=dev)
+    Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
+    f = torch.empty((N, B), dtype=dtype, device=dev)
     scratch = torch.empty((lib.pyjac_dense_fused_scratch_rows(cdims), B),
-                          dtype=F64, device=dev)
+                          dtype=dtype, device=dev)
     ptrs = (ctypes.c_void_p * len(tabs))(*[t.data_ptr() for t in tabs])
     with torch.cuda.device(dev):
-        err = lib.pyjac_dense_fused(ptrs, len(tabs), cdims, len(dims),
-                                    _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
-                                    _ptr(Jt), _ptr(f), _ptr(scratch),
-                                    _stream(dev))
-    _raise_on(err, 'K4 dense fused kernel')
-    launches['dense_fused'] += 1
+        err = getattr(lib, entry)(ptrs, len(tabs), cdims, len(dims),
+                                  _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
+                                  _ptr(Jt), _ptr(f), _ptr(scratch),
+                                  _stream(dev))
+    _raise_on(err, what)
+    launches[name] += 1
     return Jt, f

@@ -150,16 +150,19 @@ PORT_MODULES = [
     'pyjac_tpu_torch.core.ir',
     'pyjac_tpu_torch.core.mech',
     'pyjac_tpu_torch.core.pack',
+    'pyjac_tpu_torch.bench',
     'pyjac_tpu_torch.integrate',
     'pyjac_tpu_torch.ops.common',
     'pyjac_tpu_torch.ops.dydt',
     'pyjac_tpu_torch.ops.jacobian',
     'pyjac_tpu_torch.ops.jacobian_big',
     'pyjac_tpu_torch.ops.jacobian_dense',
+    'pyjac_tpu_torch.ops.jacobian_f32',
     'pyjac_tpu_torch.ops.jacobian_sparse',
     'pyjac_tpu_torch.ops.kernels',
     'pyjac_tpu_torch.ops.rates',
     'pyjac_tpu_torch.ops.thermo',
+    'pyjac_tpu_torch.parallel.batch',
     'pyjac_tpu_torch.testers.synthetic',
 ]
 

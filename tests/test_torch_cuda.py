@@ -19,6 +19,7 @@ from pyjac_tpu_torch.ops import kernels
 from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate
 from pyjac_tpu_torch.ops.jacobian_big import BigJacobian
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian, dense_reference
+from pyjac_tpu_torch.ops.jacobian_f32 import F32Jacobian, f32_reference
 from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
                                                  stage_a_reference,
                                                  stage_b_reference)
@@ -58,7 +59,8 @@ def test_kernels_match_cpu_on_card(card):
     torch.cuda.synchronize(card)
     assert kernels.launches == {'stage_a': 1, 'stage_b': 1, 'stage_b_x': 0,
                                 'big_parts': 0, 'big_cols_sparse': 0,
-                                'big_cols_dense': 0, 'dense_fused': 0}
+                                'big_cols_dense': 0, 'dense_fused': 0,
+                                'fused_f32': 0}
     assert J.device == card and J.dtype == torch.float64
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -259,3 +261,84 @@ def test_dense_launcher_refuses_cpu_tensors(card):
     with pytest.raises(ValueError, match='CUDA'):
         kernels.dense_fused(dj, torch.zeros((dj.N, 4), dtype=torch.float64),
                             torch.ones((1, 4), dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# the float32 fused kernel K3
+# ---------------------------------------------------------------------------
+
+def _f32_err(a, b):
+    """(finite share, max |a - b| on entries finite in both / the largest
+    |b| there): the JAX package's f32 metric."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return (float(fin.double().mean()),
+            float((a - b).abs()[fin].max() / b.abs()[fin].max()))
+
+
+def _f32_own(a, b, floor):
+    """max |a - b| of (N, B) float32 rows, each state (column) on its own
+    largest |b| entry, floored at ``floor`` of it, over the entries finite
+    on both sides."""
+    a, b = a.double(), b.double()
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    a, b = torch.where(fin, a, 0.0), torch.where(fin, b, 0.0)
+    denom = torch.maximum(b.abs(), b.abs().amax(0) * floor + 1e-300)
+    return float(((a - b).abs() / denom).max())
+
+
+@pytest.mark.parametrize('B', [1, 333])
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+@pytest.mark.parametrize('conp', [True, False])
+def test_fused_f32_matches_plain_on_card(card, name, conp, B):
+    """K3 launches once per call and agrees with ``f32_reference`` on the
+    same float32 inputs on the card (B = 1 and 333: no multiple of a
+    block): the JAX package's f32 metric (J and f at 2e-5 of the batch's
+    largest entry on the entries finite on both sides, finite share >=
+    0.995), and each state on its own scales: J's species rows floored at
+    1e-3 of the state's largest species-row entry < 1e-3, J's temperature
+    row floored at 1e-3 of the state's largest entry there < 1e-3, dy/dt's
+    species rows per state < 1e-4 (its temperature row on the batch's)."""
+    if name == 'flagship':
+        mech, p = flagship()
+        y, _, P = random_states(mech, B, seed=1, T_range=(1500.0, 2500.0))
+    else:
+        mech, p = packed_from_text(synthetic_mechanism(n_species=9,
+                                                       n_reactions=24,
+                                                       seed=7))
+        y, _, P = random_states(mech, B, seed=3)
+    if not conp:
+        P = _density(p, y, P)
+    y_t = torch.as_tensor(y.T.copy(), dtype=torch.float32, device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), dtype=torch.float32,
+                          device=card)
+    fj = F32Jacobian(p, conp=conp, device=card)
+    kernels.reset_launches()
+    Jt, f = fj.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert kernels.launches['fused_f32'] == 1
+    assert Jt.dtype == f.dtype == torch.float32
+    Jr, fr = f32_reference(p, y_t, P_t, conp)
+    for got, ref in ((Jt, Jr), (f, fr)):
+        share, err = _f32_err(got, ref)
+        assert share >= 0.995 and err < 2e-5, (share, err)
+    N = p.n_species
+    assert _f32_own(Jt[:, 1:].reshape(-1, B), Jr[:, 1:].reshape(-1, B),
+                    1e-3) < 1e-3
+    assert _f32_own(Jt[:, 0], Jr[:, 0], 1e-3) < 1e-3
+    assert _f32_own(f[1:], fr[1:], 1.0) < 1e-4
+    assert float((f[0] - fr[0]).abs().max() / fr[0].abs().max()) < 1e-4
+    assert Jt.shape == (N, N, B)
+
+
+def test_fused_f32_launcher_refuses_cpu_and_f64(card):
+    """The K3 launcher takes float32 CUDA tensors only."""
+    _, p = flagship()
+    fj = F32Jacobian(p, device=card)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.fused_f32(fj, torch.zeros((fj.N, 4)), torch.ones((1, 4)))
+    with pytest.raises(ValueError, match='float32'):
+        kernels.fused_f32(fj, torch.zeros((fj.N, 4), dtype=torch.float64,
+                                          device=card),
+                          torch.ones((1, 4), dtype=torch.float64,
+                                     device=card))
