@@ -42,7 +42,7 @@ exits non-zero at once:
    B = 32768 (each checked against ``SparseJacobian``), and the dense K7
    configuration at the 654 class, B = 512; then the stage split and
    each kernel alone beside its plain version, its bound and one
-   PyTorch library call;
+   PyTorch library call, and K7 alone at B = 1024 beside K6 there;
 9. K4 and K2x vs plain: K4 against ``dense_reference`` on the flagship
    at B = 32768 (the integrate cell's shape) and the 9/24 synth at
    B = 16384, CONP and CONV; K2x against ``stage_b_reference`` on the
@@ -723,11 +723,12 @@ def full_J(cols, col0):
 
 
 def dense_bound(bd, roles, post, B):
-    """K7's bound from this run's tables: its inputs read once and its
-    output written once, and the nonzero products the function needs
-    (per column, the reactions whose operand is nonzero there times the
-    nonzero nu_net entries of each).  Also returns the dense
-    contraction's floor, 2 J N R B operations, which the kernel does."""
+    """K7's bound from this run's tables: its inputs (the role rows, the
+    post rows and the tables it reads) read once and its output written
+    once, and the nonzero products the function needs (per column, the
+    reactions whose operand is nonzero there times the nonzero nu_net
+    entries of each).  Also returns the floor of the dense contraction
+    over all R that the TPU kernel does, 2 J N R B operations."""
     td = bd.tab('kd_')
     J, N, R = bd.J, bd.N, bd.R
     cols = torch.arange(J, device=roles.device)
@@ -736,7 +737,8 @@ def dense_bound(bd, roles, post, B):
             (td['eff'][:, :J] != 0) | (td['pd'][:, None] == cols))
     nnz = (td['nu_net'] != 0).sum(1)
     products = float((part.double() * nnz[:, None]).sum()) * B
-    b = bound(nbytes(roles[:bd.Sf + bd.Sp], roles[-2:], post, *td.values(),
+    read = [v for k, v in td.items() if k != 'nu_net']
+    b = bound(nbytes(roles[:bd.Sf + bd.Sp], roles[-2:], post, *read,
                      bd.inv_mw) + 8 * J * N * B, 2.0 * products)
     return b, 2.0 * products, bound(0, 2.0 * J * N * R * B)[0]
 
@@ -869,11 +871,22 @@ def phase_big_main(mechs, sizes, device, card):
     k['big_cols_dense_lib'] = best_ms(lambda: torch.matmul(nuT, P_all))
     res['bounds']['big_cols_dense'], ops7, dense7 = dense_bound(
         bd, roles, post, Bd)
-    print('  K7 bound counts %.4e nonzero-product operations; the dense '
-          'contraction the kernel does (2 J N R B = %.4e) has a floor of '
-          '%.3f ms at the f64 tensor-core peak' % (
-              ops7, 2.0 * J_ * bd.N * R_ * Bd, dense7))
+    print('  K7 bound counts %.4e nonzero-product operations (%d CSR '
+          'entries); the dense contraction of the TPU kernel (2 J N R B = '
+          '%.4e) has a floor of %.3f ms at the f64 tensor-core peak' % (
+              ops7, td['src'].numel(), 2.0 * J_ * bd.N * R_ * Bd, dense7))
     del st, roles, post, P_all
+    torch.cuda.empty_cache()
+    # K7 alone at the default path's shape, beside K6 there (phase 8a)
+    st = state_thermo(bd.packed, y_t, P_t, True)
+    roles = bd.parts(st)
+    post = finish(bd.packed, st, roles, True)['post']
+    k['big_cols_dense_B%d' % B] = per_call_ms(
+        lambda: kernels.big_cols_dense(bd, roles, post))
+    print('  column kernels alone at the 654 class, B=%d: K7 %.3f ms, K6 '
+          '%.3f ms (%s)' % (B, k['big_cols_dense_B%d' % B],
+                            k['big_cols_sparse'], card))
+    del st, roles, post
     torch.cuda.empty_cache()
     for nm, shape in (('big_parts', 'B=%d' % B),
                       ('big_cols_sparse', 'B=%d' % B),

@@ -1,5 +1,5 @@
 // Device code shared by the kernels of pyjac_tpu_torch, sm_90a, templated
-// on the scalar type S: float64 for K1, K4, K5 and K6, float32 for K3.
+// on the scalar type S: float64 for K1, K4, K5, K6 and K7, float32 for K3.
 //
 // * species_thermo: the NASA-7 thermo of one species (K1, K3, K4);
 // * reaction_parts: the per-(reaction, state) body of the large-mechanism
@@ -7,8 +7,8 @@
 //   and K3 (csrc/dense_fused.cu) run on every reaction of a state;
 // * finish_column: one Jacobian column from a CSR contraction of its
 //   operand rows and the column-finishing `post` rows (`_post_col`), the
-//   body of the sparse column kernel K6 (csrc/big_cols_sparse.cu) and of
-//   K4's and K3's column loop.
+//   body of K4's and K3's column loop (the column kernels K6/K2x and K7
+//   run its tiled counterpart, csrc/columns.cuh).
 //
 // Every line follows the operation order of the plain PyTorch versions
 // (ops/jacobian.reaction_parts_at, ops/thermo.py,

@@ -25,8 +25,10 @@ pass runs five stages, batch-minor ``(rows, B)`` throughout:
    ``_kernel_dd_cols_sparse``) on the compressed operands, or the dense
    kernel K7 (``csrc/big_cols_dense.cu``; plain version
    :func:`cols_dense_reference`; TPU kernel ``_kernel_dd_cols``), which
-   assembles each column's (R, B) operand from the roles by index
-   comparison and contracts it with nu_net over all R.
+   assembles each column's operand from the roles by index comparison
+   on the column's active reactions only (:func:`dense_active_tables`)
+   and contracts it with their nonzero nu_net, the nonzero products of
+   the TPU kernel's contraction over all R.
 
 Differences from the TPU pipeline, all consequences of native f64 or of
 the card having no VMEM: no double-float pairs or sliced matmuls (so no
@@ -38,8 +40,7 @@ stage), the expanded single-gather operand (no four-gather
 ``_assemble_p1c``), the pres-mod split whenever it leaves rows without
 pressure modification, at exactly the pres-mod count (no ``tile_r``),
 and one Rmax class (no ``jb`` column blocks, no ``rmax_classes``: K6
-runs one thread per state and column and follows each column's
-nonzeros, so neither gains on the card).
+follows each column's nonzeros, so neither gains on the card).
 """
 
 from __future__ import annotations
@@ -100,10 +101,12 @@ def expanded_col_tables(packed) -> dict:
 
 
 def dense_col_tables(packed) -> dict:
-    """The K7 kernel's tables: ``nu_net`` (R, N), the reactant/product
-    slot species ``spf``/``spp`` (R, Sf|Sp) with -1 on empty slots, the
-    efficiencies ``eff`` (R, N) (``eff_m1``; zeros without pressure
-    modification) and the species-pdep index ``pd`` (R,)."""
+    """The dense column tables: ``nu_net`` (R, N) (the plain version's;
+    K7 reads its nonzeros through :func:`dense_active_tables`), the
+    reactant/product slot species ``spf``/``spp`` (R, Sf|Sp) with -1 on
+    empty slots, the efficiencies ``eff`` (R, N) (``eff_m1``; zeros
+    without pressure modification) and the species-pdep index ``pd``
+    (R,)."""
     spf = np.where(np.asarray(packed.reac_nu) != 0,
                    np.asarray(packed.reac_sp), -1)
     spp = np.where(np.asarray(packed.prod_nu) != 0,
@@ -114,6 +117,37 @@ def dense_col_tables(packed) -> dict:
     return dict(nu_net=nu_net, spf=spf.astype(np.int32),
                 spp=spp.astype(np.int32), eff=eff,
                 pd=np.asarray(packed.pdep_sp_idx).astype(np.int32))
+
+
+def dense_active_tables(tabs) -> dict:
+    """The K7 kernel's per-column tables from the :func:`dense_col_tables`
+    arrays ``tabs``: ``act`` (J, A) int32, column j's active reactions
+    (those whose :func:`p1_dense` operand is not zero by ``spf``, ``spp``,
+    ``eff`` and ``pd`` alone) ascending, padded with -1 to ``A``, a
+    multiple of 8; and a CSR over (column, output row n) of their nonzero
+    ``nu_net[r, n]``: ``ptr`` (J*N + 1,) int32, ``src`` the position of
+    each entry's reaction in its column's ``act`` row (int32, ascending
+    within a row) and ``coef`` its nu_net (float64)."""
+    nu_net = tabs['nu_net']
+    N = nu_net.shape[1]
+    J = N - 1
+    cols = np.arange(J)
+    part = ((tabs['spf'][:, :, None] == cols).any(1) |
+            (tabs['spp'][:, :, None] == cols).any(1) |
+            (tabs['eff'][:, :J] != 0) | (tabs['pd'][:, None] == cols))
+    active = [np.nonzero(part[:, j])[0] for j in range(J)]
+    act = np.full((J, _ceil8(max(len(a) for a in active))), -1, np.int32)
+    counts, src, coef = [], [], []
+    for j, rs in enumerate(active):
+        act[j, :len(rs)] = rs
+        n, i = np.nonzero(nu_net[rs].T)        # row-major: n, then i, ascend
+        counts.append(np.bincount(n, minlength=N))
+        src.append(i)
+        coef.append(nu_net[rs[i], n])
+    ptr = np.concatenate([[0], np.cumsum(np.concatenate(counts))])
+    return dict(act=act, ptr=ptr.astype(np.int32),
+                src=np.concatenate(src).astype(np.int32),
+                coef=np.concatenate(coef).astype(np.float64))
 
 
 def parts_tables(packed) -> dict:
@@ -359,7 +393,9 @@ class BigJacobian(nn.Module):
             buf('ks_src', src)
             buf('ks_coef', coef)
         else:
-            for name, arr in dense_col_tables(packed).items():
+            dense = dense_col_tables(packed)
+            dense.update(dense_active_tables(dense))
+            for name, arr in dense.items():
                 buf('kd_' + name, arr)
         self.to(device)
 

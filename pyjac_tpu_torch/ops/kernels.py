@@ -36,7 +36,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
            'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu')
 # device code the sources include (part of the build's hash)
-HEADERS = ('kinetics.cuh',)
+HEADERS = ('kinetics.cuh', 'columns.cuh')
 ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # -fmad=false: no multiply-add contraction, so each kernel operation
 # rounds like the plain version's separate torch ops (near equilibrium
@@ -144,12 +144,9 @@ def load():
                                     vp, vp]
     lib.pyjac_big_parts.restype = ci
     lib.pyjac_big_cols_sparse.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                          cll, vp]
+                                          ci, cll, vp]
     lib.pyjac_big_cols_sparse.restype = ci
-    lib.pyjac_big_cols_dense_tiles.argtypes = [ci]
-    lib.pyjac_big_cols_dense_tiles.restype = ci
-    lib.pyjac_big_cols_dense.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                         vp, ci, ci, ci, ci, ci, cll, vp]
+    lib.pyjac_big_cols_dense.argtypes = [vp] * 12 + [ci] * 6 + [cll, vp]
     lib.pyjac_big_cols_dense.restype = ci
     lib.pyjac_dense_fused_n_tables.argtypes = []
     lib.pyjac_dense_fused_n_tables.restype = ci
@@ -349,7 +346,8 @@ def _cols_sparse(mod, p1, post, prefix, name, what):
     with torch.cuda.device(dev):
         err = lib.pyjac_big_cols_sparse(
             _ptr(ptr), _ptr(src), _ptr(coef), _ptr(mod.inv_mw), _ptr(p1),
-            _ptr(post), _ptr(out), N, int(mod.conp), B, _stream(dev))
+            _ptr(post), _ptr(out), N, mod.Rmax, int(mod.conp), B,
+            _stream(dev))
     _raise_on(err, what)
     launches[name] += 1
     return out
@@ -358,12 +356,17 @@ def _cols_sparse(mod, p1, post, prefix, name, what):
 def big_cols_dense(mod, roles, post):
     """Launch the K7 kernel (``csrc/big_cols_dense.cu``): the (J, N, B)
     columns of ``mod`` (a ``BigJacobian`` with ``sparse_cols=False``)
-    from the role array and the post rows."""
+    from the role array and the post rows, through the per-column active
+    reactions and their CSR (``jacobian_big.dense_active_tables``)."""
     dev, N, R, J, B = roles.device, mod.N, mod.R, mod.J, roles.shape[-1]
     _check('roles', roles, (mod.n_roles, R, B), F64, dev)
     _check('post', post, (mod.n_post, B), F64, dev)
     t = mod.tab('kd_')
-    for name, want, shape in (('nu_net', F64, (R, N)),
+    A = t['act'].shape[1]
+    for name, want, shape in (('act', torch.int32, (J, A)),
+                              ('ptr', torch.int32, (J * N + 1,)),
+                              ('src', torch.int32, t['src'].shape),
+                              ('coef', F64, t['src'].shape),
                               ('spf', torch.int32, (R, mod.Sf)),
                               ('spp', torch.int32, (R, mod.Sp)),
                               ('eff', F64, (R, N)),
@@ -372,14 +375,12 @@ def big_cols_dense(mod, roles, post):
     _check('BigJacobian.inv_mw', mod.inv_mw, (N,), F64, dev)
     lib = load()
     out = torch.empty((J, N, B), dtype=F64, device=dev)
-    tpart = torch.empty((lib.pyjac_big_cols_dense_tiles(N), J, B),
-                        dtype=F64, device=dev)
     with torch.cuda.device(dev):
         err = lib.pyjac_big_cols_dense(
-            _ptr(t['nu_net']), _ptr(t['spf']), _ptr(t['spp']),
-            _ptr(t['eff']), _ptr(t['pd']), _ptr(mod.inv_mw), _ptr(roles),
-            _ptr(post), _ptr(out), _ptr(tpart), N, R, mod.Sf, mod.Sp,
-            int(mod.conp), B, _stream(dev))
+            *(_ptr(t[k]) for k in ('act', 'ptr', 'src', 'coef', 'spf', 'spp',
+                                   'eff', 'pd')),
+            _ptr(mod.inv_mw), _ptr(roles), _ptr(post), _ptr(out), N, R,
+            mod.Sf, mod.Sp, A, int(mod.conp), B, _stream(dev))
     _raise_on(err, 'K7 dense column kernel')
     launches['big_cols_dense'] += 1
     return out

@@ -31,10 +31,17 @@ from pyjac_tpu.testers.synthetic import (plausible_mechanism,
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import packed_from_arrays
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian,
+                                              cols_dense_reference,
+                                              dense_active_tables,
+                                              dense_col_tables,
                                               expanded_col_tables, finish,
-                                              parts_reference,
+                                              p1_dense, parts_reference,
                                               state_thermo)
-from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian, post_rows
+from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian, post_rows,
+                                                 post_col_reference)
+from pyjac_tpu_torch.testers.synthetic import packed_from_text
+from pyjac_tpu_torch.testers.synthetic import (
+    plausible_mechanism as port_plausible_mechanism)
 
 torch.set_num_threads(1)
 
@@ -113,6 +120,124 @@ def test_tables_match_jax(tmp_path_factory, name):
     ok = np.setdiff1d(np.arange(SCx['J_pad']), SCx['deep_cols'])
     nuc_j = SCx['nuc'].astype(np.float64) * SCx['nu_rs'].astype(np.float64)
     assert np.array_equal(ex['nuc'][ok], nuc_j[ok])
+
+
+def _k7_mech(tmp_path_factory, name):
+    """The port's packed mechanism for the K7 table tests: the 654-species
+    class (packed by the port alone), or one of :data:`MECHS`."""
+    if name == '654':
+        if name not in _CACHE:
+            _CACHE[name] = packed_from_text(
+                port_plausible_mechanism(654, 2716, seed=5))[1]
+        return _CACHE[name]
+    return _mech(tmp_path_factory, name)[2]
+
+
+def _part_mask(td, J):
+    """(R, J): reaction r's dense operand in column j is not zero by the
+    tables alone (a slot, an efficiency or the pdep index names j)."""
+    cols = np.arange(J)
+    return ((td['spf'][:, :, None] == cols).any(1) |
+            (td['spp'][:, :, None] == cols).any(1) |
+            (td['eff'][:, :J] != 0) | (td['pd'][:, None] == cols))
+
+
+@pytest.mark.parametrize('name', ['654', 'flagship', 'synth'])
+def test_k7_active_tables(tmp_path_factory, name):
+    """K7's per-column tables list exactly the reactions of the ``part``
+    mask, ascending, with -1 only in the padding past them (A a multiple
+    of 8); the CSR holds exactly the nonzero nu_net of those reactions,
+    row by row, entries in ascending reaction order; and the dense
+    operand is zero on every reaction outside the list."""
+    p = _k7_mech(tmp_path_factory, name)
+    td = dense_col_tables(p)
+    at = dense_active_tables(td)
+    N, J = p.n_species, p.n_species - 1
+    part = _part_mask(td, J)
+    act, ptr, src, coef = at['act'], at['ptr'], at['src'], at['coef']
+    assert act.dtype == ptr.dtype == src.dtype == np.int32
+    assert act.shape[0] == J and act.shape[1] % 8 == 0
+    assert ptr.shape == (J * N + 1,) and ptr[0] == 0
+    assert ptr[-1] == len(src) == len(coef)
+    nnz = (td['nu_net'] != 0).sum(1)
+    assert len(src) == int((part * nnz[:, None]).sum())
+    for j in range(J):
+        k = int(part[:, j].sum())
+        assert np.array_equal(act[j, :k], np.nonzero(part[:, j])[0])
+        assert (act[j, k:] == -1).all()
+        for n in range(N):
+            e = slice(ptr[j * N + n], ptr[j * N + n + 1])
+            rs = act[j, src[e]]
+            assert (np.diff(rs) > 0).all()
+            assert np.array_equal(rs, act[j, :k][td['nu_net'][act[j, :k],
+                                                              n] != 0])
+            assert np.array_equal(coef[e], td['nu_net'][rs, n])
+    rng = np.random.default_rng(11)
+    Sf, Sp = td['spf'].shape[1], td['spp'].shape[1]
+    roles = torch.as_tensor(rng.uniform(-1, 1, (Sf + Sp + 6, p.n_reactions,
+                                                3)))
+    t = {k: torch.as_tensor(v) for k, v in td.items()}
+    for j in range(J):
+        P1 = p1_dense(roles, Sf, Sp, t['spf'], t['spp'], t['eff'], t['pd'], j)
+        assert not P1[torch.as_tensor(~part[:, j])].any()
+
+
+def _csr_dcol(roles, t, J, N):
+    """K7's contraction in plain torch from its CSR: column j's active
+    operand rows, each entry's coefficient times its row, summed into its
+    output row in entry order."""
+    Sf, Sp = t['spf'].shape[1], t['spp'].shape[1]
+    B = roles.shape[-1]
+    ops = torch.stack([p1_dense(roles, Sf, Sp, t['spf'], t['spp'], t['eff'],
+                                t['pd'], j)[t['act'][j].clamp_min(0)]
+                       for j in range(J)], 0)                   # (J, A, B)
+    ops = ops * (t['act'] >= 0)[..., None]
+    counts = torch.diff(t['ptr'].long())
+    cell = torch.repeat_interleave(torch.arange(J * N), counts)
+    col = cell // N
+    terms = t['coef'][:, None] * ops[col, t['src'].long()]
+    dcol = torch.zeros((J * N, B), dtype=torch.float64)
+    dcol.index_add_(0, cell, terms)
+    mag = torch.zeros((J * N, B), dtype=torch.float64)
+    mag.index_add_(0, cell, terms.abs())
+    return dcol.view(J, N, B), mag.view(J, N, B)
+
+
+@pytest.mark.parametrize('conp', [True, False], ids=['conp', 'conv'])
+@pytest.mark.parametrize('name', ['654', 'flagship', 'synth'])
+def test_k7_csr_contraction_matches_dense(tmp_path_factory, name, conp):
+    """On seeded roles and post rows, the contraction over K7's CSR equals
+    ``nu_net.T @ p1_dense(...)`` of every column to 1e-15 of the summed
+    magnitude of its products, and finished by ``post_col_reference`` it
+    gives ``cols_dense_reference``'s columns to 1e-13 of each column's
+    largest entry (its temperature row sums the N rounded rows)."""
+    p = _k7_mech(tmp_path_factory, name)
+    bd = BigJacobian(p, conp=conp, sparse_cols=False, device='cpu')
+    t = bd.tab('kd_')
+    N, J, B = bd.N, bd.J, 3
+    rng = np.random.default_rng(5)
+    roles = torch.as_tensor(rng.uniform(-1, 1, (bd.n_roles, bd.R, B)))
+    post = torch.as_tensor(rng.uniform(0.5, 2.0, (bd.n_post, B)))
+    got, mag = _csr_dcol(roles, t, J, N)
+    dense = torch.stack([t['nu_net'].T @ p1_dense(
+        roles, bd.Sf, bd.Sp, t['spf'], t['spp'], t['eff'], t['pd'], j)
+        for j in range(J)], 0)
+    scale = mag.amax(1, keepdim=True).clamp_min(1e-300)
+    assert float(((got - dense).abs() / scale).max()) < 1e-15
+    cols = post_col_reference(got, torch.arange(J), bd.inv_mw, post, conp)
+    ref = cols_dense_reference(roles, t, bd.inv_mw, post, conp)
+    cscale = ref.abs().amax(1, keepdim=True).clamp_min(1e-300)
+    assert float(((cols - ref).abs() / cscale).max()) < 1e-13
+
+
+def test_k6_csr_stays_in_its_column_block(tmp_path_factory):
+    """K6 stages column j's operand rows [j*Rmax, (j+1)*Rmax) alone, so
+    each column's CSR entries must point inside that block."""
+    for name in ('synth', 'flagship', 'usc'):
+        bj = BigJacobian(_mech(tmp_path_factory, name)[2], device='cpu')
+        col = torch.repeat_interleave(torch.arange(bj.J * bj.N),
+                                      torch.diff(bj.ks_ptr.long())) // bj.N
+        assert bool((bj.ks_src.long() // bj.Rmax == col).all()), name
 
 
 def test_default_device_is_the_card(tmp_path_factory):

@@ -17,10 +17,14 @@ from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
 from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate
-from pyjac_tpu_torch.ops.jacobian_big import BigJacobian
+from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian,
+                                              cols_dense_reference,
+                                              cols_sparse_reference, finish,
+                                              p1_dense, parts_reference,
+                                              source_stack, state_thermo)
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian, dense_reference
 from pyjac_tpu_torch.ops.jacobian_f32 import F32Jacobian, f32_reference
-from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
+from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian, post_rows,
                                                  stage_a_reference,
                                                  stage_b_reference)
 from pyjac_tpu_torch.testers.synthetic import (flagship, packed_from_text,
@@ -167,6 +171,95 @@ def test_big_reassigned_table_on_card(card):
     torch.cuda.empty_cache()
     J2, f2 = bj(y, P)
     assert torch.equal(J1, J2) and torch.equal(f1, f2)
+
+
+def _t_row_gross(dcol, inv_mw, post, conp):
+    """(J, B): the summed magnitude of the terms each column's temperature
+    row adds (``post_col_reference``'s N terms eWn * dcol and its fT
+    term), from the plain raw contraction ``dcol``."""
+    N = dcol.shape[1]
+    J = N - 1
+    g = {k: post[a:b] for k, (a, b) in post_rows(N, J).items()}
+    w = inv_mw[:J]
+    u = w - inv_mw[N - 1]
+    d = (dcol * w[:, None, None] + g['v_u'][None] * u[:, None, None] +
+         g['v_c'][None])
+    r = -(g['mw_avg'] * u[:, None]) if conp else 0.0
+    return ((g['eWn'][None] * d).abs().sum(1) +
+            (g['fT'] * (r + (g['cp'][:J] - g['cp'][N - 1]) * g['ish'])).abs())
+
+
+# (mechanism, kernel): J = 8 (synth) and 52 (flagship), neither a multiple
+# of K7's 16 columns per block, 52 none of K6's 8
+COLUMN_CASES = [('synth', 'K6'), ('synth', 'K7'), ('flagship', 'K6'),
+                ('flagship', 'K7'), ('flagship', 'K2x')]
+
+
+@pytest.mark.parametrize('conp', [True, False], ids=['conp', 'conv'])
+@pytest.mark.parametrize('name,kern', COLUMN_CASES,
+                         ids=['-'.join(c) for c in COLUMN_CASES])
+def test_column_kernels_match_plain_on_card(card, name, kern, conp):
+    """K6, K7 and K2x each launch once and agree with their plain versions
+    on the same inputs at a ragged batch (1000 states: no multiple of a
+    block's states), CONP and CONV: J's species rows floored@1e-10 <=
+    1e-9, its temperature row <= 1e-12 of the summed magnitude of its
+    terms (chip_smoke.py's TOL_BIG_J and TOL_BIG_JT)."""
+    B = 1000
+    if name == 'flagship':
+        _, p = flagship()
+        d = np.load(DATA / 'flagship_states.npz')
+        y, P = d['y'][:B], d['P'][:B]
+    else:
+        _, p = packed_from_text(synthetic_mechanism(n_species=9,
+                                                    n_reactions=24, seed=7))
+        y, _, P = random_states(p.mech, B, seed=3)
+    if not conp:
+        P = _density(p, y, P)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), device=card)
+    if kern == 'K2x':
+        mod = SparseJacobian(p, conp=conp, fuse_gather=False, device=card)
+        a = stage_a_reference(p, y_t, P_t, conp)
+        post = a['post']
+        p1 = mod.stage_gather(a['src'])
+        rows = torch.arange(mod.J * mod.Rmax, device=card).view(mod.J,
+                                                                mod.Rmax)
+        plain = stage_b_reference(rows, mod.nuc, mod.inv_mw, p1, post, conp)
+        dcol = torch.einsum('jnr,jrb->jnb', mod.nuc, p1.view(mod.J, mod.Rmax,
+                                                             B))
+        kernels.reset_launches()
+        got = mod.stage_b_x(p1, post)
+        name_k = 'stage_b_x'
+    else:
+        mod = BigJacobian(p, conp=conp, sparse_cols=kern == 'K6',
+                          device=card)
+        st = state_thermo(mod.packed, y_t, P_t, conp)
+        roles = parts_reference(mod.packed, st, conp)
+        post = finish(mod.packed, st, roles, conp)['post']
+        k = mod.Sf + mod.Sp
+        if kern == 'K6':
+            p1c = mod.assemble_p1c(source_stack(roles, k, mod.eff_val))
+            plain = cols_sparse_reference(p1c, mod.ks_nuc, mod.inv_mw, post,
+                                          conp)
+            dcol = torch.einsum('jnr,jrb->jnb', mod.ks_nuc,
+                                p1c.view(mod.J, mod.Rmax, B))
+        else:
+            t = mod.tab('kd_')
+            plain = cols_dense_reference(roles, t, mod.inv_mw, post, conp)
+            dcol = torch.stack([t['nu_net'].T @ p1_dense(
+                roles, mod.Sf, mod.Sp, t['spf'], t['spp'], t['eff'],
+                t['pd'], j) for j in range(mod.J)], 0)
+        kernels.reset_launches()
+        got = mod.columns(roles, post)
+        name_k = 'big_cols_sparse' if kern == 'K6' else 'big_cols_dense'
+    torch.cuda.synchronize(card)
+    assert kernels.launches[name_k] == 1
+    assert got.shape == plain.shape == (mod.J, mod.N, B)
+    gross = _t_row_gross(dcol, mod.inv_mw, post, conp)
+    assert float(((got[:, 0] - plain[:, 0]).abs() / gross).max()) <= 1e-12
+    bmax = plain.abs().reshape(-1, B).amax(0)
+    e = (got - plain).abs() / torch.maximum(plain.abs(), bmax * 1e-10)
+    assert float(e[:, 1:].max()) <= 1e-9
 
 
 # ---------------------------------------------------------------------------

@@ -286,6 +286,23 @@ def test_stage_gather_matches_jax_take(tmp_path):
     assert np.array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+def test_k2x_csr_stays_in_its_column_block(flagship, synth, name):
+    """K2x (K6's kernel) reads column j's operand rows [j*Rmax,
+    (j+1)*Rmax) of the gathered operand alone, so each column's CSR
+    entries must point inside that block, and they carry exactly the
+    nonzeros of ``nuc[j]``, row by row."""
+    p = (flagship if name == 'flagship' else synth)[1]
+    sj = SparseJacobian(p, fuse_gather=False, device='cpu')
+    cell = torch.repeat_interleave(torch.arange(sj.J * sj.N),
+                                   torch.diff(sj.kx_ptr.long()))
+    col, row = cell // sj.N, cell % sj.N
+    src = sj.kx_src.long()
+    assert bool((src // sj.Rmax == col).all())
+    assert torch.equal(sj.kx_coef, sj.nuc[col, row, src % sj.Rmax])
+    assert int((sj.nuc != 0).sum()) == len(src)
+
+
 def test_k2x_launcher_refuses_cpu_tensors(flagship):
     sj = SparseJacobian(flagship[1], fuse_gather=False, device='cpu')
     before = dict(kernels.launches)
