@@ -18,15 +18,27 @@ exits non-zero at once:
    float64 SASS instructions of K3 (the float instantiation of
    ``dense_fused_kernel``) with ``cuobjdump``, which runs in the
    background and is read after phase 5 (2b): there must be none;
-3. kernels vs plain: each kernel against its plain PyTorch version on
-   the same 16384 flagship states (and stage A also under CONV);
+3. kernels vs plain: K1 and K2 against their plain PyTorch versions on
+   the same inputs, CONP and CONV: 16384 flagship states, and 16384
+   states of the all-features synth at the flagship's width (53 species
+   / 326 reactions: PLOG, Chebyshev, SRI, chemically activated,
+   species-specific pdep, fractional nu);
 4. golden: the 128 reference-C golden states of
-   ``tests/data/golden_flagship_refc.npz``;
+   ``tests/data/golden_flagship_refc.npz`` and the all-features synth's
+   (9/24, ``golden_synth_refc.npz``) through ``SparseJacobian``;
 5. main path: the flagship states tiled to B = 131072 through
    ``SparseJacobian.call_tr`` (one warm-up, best of 3 timed passes with
    CUDA events), with both kernels' launch counters checked, then each
    stage timed alone against its plain version and (K2) one PyTorch
    library call at the same B;
+5b. the all-features path: the 53/326 synth's ``random_states(seed=3)``
+   at B = 131072 through ``SparseJacobian.call_tr``, fused (K1 + K2) and
+   unfused (K1, the gather, K2x), each timed as phase 5 with its launch
+   counters, peak memory and (fused) a ``torch.profiler`` split; K1
+   against ``stage_a_reference`` and K2 and K2x on K1's outputs against
+   ``stage_b_reference``, all at that B and phase 3's tolerances; K1
+   alone beside its plain version and its bound; J against
+   ``DenseJacobian`` (K4) on 4096 of the states;
 6. big kernels vs plain: K5, K6 and K7 against their plain versions on
    the same inputs, CONP and CONV, at the shape of each timed path of
    phase 8 (K5 + K6 at the 654 class, B = 1024, and at the USC-II class,
@@ -136,24 +148,34 @@ TOL_NET = 1e-8            # arrays that sum net rates, norm-relative per
 # 16384 flagship states, CONP and CONV:
 TOL_PSI_Q = 1e-9          # third-body source rows psi*(Rf - Rr)*eff carry a
 #                           net rate; per row, read 1.8e-10
-TOL_F_ROW = 1e-7          # dy/dt species rows, each on its own scale, read
-#                           2.4e-8 (cause not isolated, see PERF.md)
+TOL_F_GROSS = 1e-12       # dy/dt species rows (K1, K4), each entry on the
+#                           summed magnitude of the terms omega = nu^T q
+#                           adds, sum_r |nu_rn| |pm_r| (|Rf_r| + |Rr_r|)
+#                           W_n / rho: near equilibrium a row cancels up to
+#                           ~1e7-fold, so on its own scale two summation
+#                           orders differ by up to 2.4e-8 (the plain version
+#                           against the JAX package's f64 dydt reads 5.7e-15
+#                           of the terms, tests/test_torch_sparse.py)
 TOL_J = 1e-9             # Jacobian columns, floored at 1e-10 of the state
 # golden parity (tests/test_golden_parity.py:255-274)
 TOL_GOLDEN_J = 1e-8
 TOL_GOLDEN_F = 1e-7
+# ... and the all-features golden's (TestAllFeaturesGolden): J floored at
+# 1e-9 < TOL_GOLDEN_J, dy/dt floored at 1e-9 < this
+TOL_SYNTH_GOLDEN_F = 1e-10
 # the large-mechanism pipeline: K5 role rows without a net rate
 # (vals_f/vals_p, c_u, c_1) are elementwise (TOL_ELEMENTWISE, per row);
 # rows that carry a net rate of progress (q, dq_dT, psi_q, xi_q) cancel
 # and are held per row at
 TOL_ROLE_NET = 1e-9
-TOL_BIG_J = 1e-9          # K6/K7 vs plain, J species rows floored at 1e-10
-#                           of the state (its whole J)
+TOL_BIG_J = 1e-9          # K6/K7 (also K4, K2, K2x) vs plain, J species
+#                           rows floored at 1e-10 of the state (its whole J)
 TOL_BIG_JT = 1e-12        # ... and J's temperature row, relative to the
 #                           summed magnitude of the N + 1 terms it adds: the
 #                           terms exceed the row up to 3.2e6-fold at USC-II
 #                           states, so on the floored scale two f64
 #                           summation orders differ by up to 2.2e-8 there
+#                           (K2 on the 53/326 synth at B = 131072: 1.3e-9)
 TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored
 TOL_INTEGRATE = 1e-9      # integrate jacobian='dd' vs 'xla': endpoints
 #                           floored at 1e-10 of each state's largest entry
@@ -176,9 +198,17 @@ TOL_F32_JT = 1e-4         # J's temperature row on the summed magnitude of
 #                           its terms; read up to 1.1e-5
 F32_FAULT = 1e-2          # the planted fault: J's species rows, or its
 #                           temperature row, scaled by 1 + this
+TOL_F32_GOLDEN_F = 0.14   # K3's golden dy/dt, max |diff| / scale (PaSR
+#                           states near equilibrium, where float32 loses
+#                           most digits): twice the JAX package's own f32
+#                           kernel's reading, 7.0e-2 (PallasJacobian,
+#                           interpret, CPU; tests/test_torch_f32.py)
 
 # the integrate cell's horizon: one CFD flow step's chemistry sub-step
 T_END = 1e-4
+
+# phase 5b's cross-check of SparseJacobian against DenseJacobian (K4)
+SYNTH_CROSS_B = 4096
 
 # BigJacobian's default configuration is K5 + K6 (split_presmod on);
 # the dense one runs K5 + K7
@@ -281,89 +311,150 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_kernels_vs_plain(sj, packed, device, B, card):
-    """Phase 3: K1 and K2 against their plain versions, same inputs."""
-    y, P = flagship_states(B)
-    y_t, P_t = to_tr(y, P, device)
-    N, R, J = sj.N, sj.R, sj.J
-    rows = post_rows(N, J)
-    summed = ('v_u', 'v_c', 'fkJ', 'fT')
+def f_gross(packed, y_t, param, conp):
+    """(J, B): for each dy/dt species row, the summed magnitude of the
+    terms omega = nu_net^T q adds, sum_r |nu_rn| |pm_r| (|Rf_r| + |Rr_r|)
+    W_n / rho, from the float64 plain pieces on the states."""
+    rp = reaction_parts(packed, param[0], y_t.T, conp)
+    q_gross = rp['pm'].abs() * (rp['Rf'].abs() + rp['Rr'].abs())
+    nu = torch.as_tensor(packed.nu_net, dtype=F64, device=y_t.device).abs()
+    mw = torch.as_tensor(packed.mw, dtype=F64, device=y_t.device)
+    return ((q_gross @ nu) * mw / rp['rho'][:, None]).T[:-1].contiguous()
+
+
+def case_states(name, packed, B, device):
+    """The states of a phase-3 / 9 case: the flagship's PaSR states, else
+    the mechanism's ``random_states(seed=3)``."""
+    if name == 'flagship':
+        return to_tr(*flagship_states(B), device)
+    return big_states(packed, B, device)
+
+
+def phase_kernels_vs_plain(cases, device, card):
+    """Phase 3: K1 and K2 against their plain versions, same inputs, CONP
+    and CONV; the case marked ``main`` gives the rows' ``max_abs_err``
+    (CONP)."""
     res = {}
-    for conp in (True, False):
-        if not conp:
-            sj = SparseJacobian(packed, conp=False, device=device)
-        if conp:
-            param = P_t
-        else:
-            # CONV takes density: the state's own, so the rates stay real
-            inv_mw = torch.as_tensor(packed.inv_mw, device=device)
-            Yf = torch.cat([y_t[1:], 1.0 - y_t[1:].sum(0, keepdim=True)])
-            param = (P_t / (RU * y_t[:1] * (Yf * inv_mw[:, None]).sum(
-                0, keepdim=True))).contiguous()
-        ref = stage_a_reference(packed, y_t, param, conp)
-        got = sj.stage_a(y_t, param)
-        torch.cuda.synchronize()
-        errs = {}
-        # source stack: per-slot values are elementwise; the third-body
-        # rows psi*(Rf - Rr)*eff carry a net rate of progress
-        n_vals = (sj.Sf + sj.Sp) * R
-        errs['src_vals'] = (row_rel(got['src'][:n_vals], ref['src'][:n_vals]),
-                            TOL_ELEMENTWISE)
-        if sj.S_eff:
-            a, b = n_vals, n_vals + sj.S_eff * R
-            errs['src_psi_q'] = (row_rel(got['src'][a:b], ref['src'][a:b]),
-                                 TOL_PSI_Q)
-        rest = got['src'][n_vals + sj.S_eff * R:]
-        errs['src_zero_rows'] = (float(rest.abs().max()), 0.0)
-        # the temperature row (0) of col0 and f is far larger than the
-        # species rows, so each part is gated on its own scale
-        for k in ('col0', 'f'):
-            errs[k + ' T'] = (row_rel(got[k][:1], ref[k][:1]), TOL_NET)
-            errs[k + ' Y'] = (state_rel(got[k][1:], ref[k][1:]), TOL_NET)
-        errs['f Y per row'] = (row_rel(got['f'][1:], ref['f'][1:]), TOL_F_ROW)
-        for name, (a, b) in rows.items():
-            ga, ra = got['post'][a:b], ref['post'][a:b]
-            errs[name] = ((state_rel(ga, ra), TOL_NET) if name in summed
-                          else (row_rel(ga, ra), TOL_ELEMENTWISE))
-        tag = 'conp' if conp else 'conv'
-        for name, (err, tol) in errs.items():
-            print('  stage A %s %-13s %.3e (<= %.0e)' % (tag, name, err, tol))
-        for name, (err, tol) in errs.items():
-            check(err <= tol, 'stage A %s %s: %.3e > %.0e' % (tag, name, err,
-                                                               tol))
-        max_a = max(float((got[k] - ref[k]).abs().max())
-                    for k in ('src', 'col0', 'f', 'post'))
-        cref = stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, ref['src'],
-                                 ref['post'], conp)
-        cgot = sj.stage_b(ref['src'], ref['post'])
-        torch.cuda.synchronize()
-        errJ = floored(cgot, cref, 1e-10)
-        print('  stage B %s J floored@1e-10 %.3e (<= %.0e)' % (tag, errJ,
-                                                               TOL_J))
-        check(errJ <= TOL_J, 'stage B %s: %.3e > %.0e' % (tag, errJ, TOL_J))
-        if conp:
-            res = dict(stage_a=max_a,
-                       stage_b=float((cgot - cref).abs().max()))
-        del ref, got, cref, cgot
-    print('phase 3 kernels vs plain: ok (B=%d, %s)' % (B, card))
+    for name, packed, B, main in cases:
+        y_t, P_t = case_states(name, packed, B, device)
+        for conp in (True, False):
+            sj = SparseJacobian(packed, conp=conp, device=device)
+            param = P_t if conp else own_density(packed, y_t, P_t)
+            ref = stage_a_reference(packed, y_t, param, conp)
+            got = sj.stage_a(y_t, param)
+            torch.cuda.synchronize()
+            tag = '%s %s B=%d' % (name, 'conp' if conp else 'conv', B)
+            gate_stage_a(sj, y_t, param, got, ref, tag)
+            max_a = max(float((got[k] - ref[k]).abs().max())
+                        for k in ('src', 'col0', 'f', 'post'))
+            cref = stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, ref['src'],
+                                     ref['post'], conp)
+            cgot = sj.stage_b(ref['src'], ref['post'])
+            gate_stage_b(sj, tag, cgot, cref, ref, whole=True)
+            if conp and main:
+                res = dict(stage_a=max_a,
+                           stage_b=float((cgot - cref).abs().max()))
+            del ref, got, cref, cgot, sj
+            torch.cuda.empty_cache()
+    print('phase 3 kernels vs plain: ok (%s)' % card)
     return res
 
 
-def phase_golden(sj, device, card):
-    """Phase 4: the 128 reference-C golden states through the module."""
-    g = np.load(os.path.join(DATA, 'golden_flagship_refc.npz'))
-    errJ, errf = golden_errs(sj, g)
-    print('phase 4 golden: J floored@1e-10 %.3e (< %.0e), dy/dt norm-rel '
-          '%.3e (< %.0e) (%s)' % (errJ, TOL_GOLDEN_J, errf, TOL_GOLDEN_F,
-                                  card))
-    check(errJ < TOL_GOLDEN_J, 'golden J %.3e' % errJ)
-    check(errf < TOL_GOLDEN_F, 'golden dy/dt %.3e' % errf)
+def gate_stage_a(sj, y_t, param, got, ref, tag):
+    """Hold K1's outputs ``got`` against ``stage_a_reference``'s ``ref`` on
+    the same states, each row set at its own tolerance."""
+    packed, conp, R = sj.packed, sj.conp, sj.R
+    errs = {}
+    # source stack: per-slot values are elementwise; the third-body rows
+    # psi*(Rf - Rr)*eff and the species-pdep row xi*(Rf - Rr) carry a net
+    # rate of progress
+    n_vals = (sj.Sf + sj.Sp) * R
+    errs['src_vals'] = (row_rel(got['src'][:n_vals], ref['src'][:n_vals]),
+                        TOL_ELEMENTWISE)
+    a = n_vals + sj.S_eff * R
+    if sj.S_eff:
+        errs['src_psi_q'] = (row_rel(got['src'][n_vals:a],
+                                     ref['src'][n_vals:a]), TOL_PSI_Q)
+    if packed.has_specific_pdep_sp:
+        errs['src_xi_q'] = (row_rel(got['src'][a:a + R],
+                                    ref['src'][a:a + R]), TOL_PSI_Q)
+        errs['src_zero_row'] = (float(got['src'][-1].abs().max()), 0.0)
+    else:
+        errs['src_zero_rows'] = (float(got['src'][a:].abs().max()), 0.0)
+    # the temperature row (0) of col0 and f is far larger than the species
+    # rows, so each part is gated on its own scale
+    for k in ('col0', 'f'):
+        errs[k + ' T'] = (row_rel(got[k][:1], ref[k][:1]), TOL_NET)
+        errs[k + ' Y'] = (state_rel(got[k][1:], ref[k][1:]), TOL_NET)
+    gross = f_gross(packed, y_t, param, conp)
+    errs['f Y on terms'] = (float(
+        ((got['f'][1:] - ref['f'][1:]).abs() / gross).max()), TOL_F_GROSS)
+    print('  %s f Y per row on its own scale %.3e' % (
+        tag, row_rel(got['f'][1:], ref['f'][1:])))
+    del gross
+    for nm, (lo, hi) in post_rows(sj.N, sj.J).items():
+        ga, ra = got['post'][lo:hi], ref['post'][lo:hi]
+        errs[nm] = ((state_rel(ga, ra), TOL_NET)
+                    if nm in ('v_u', 'v_c', 'fkJ', 'fT')
+                    else (row_rel(ga, ra), TOL_ELEMENTWISE))
+    for nm, (err, tol) in errs.items():
+        print('  stage A %s %-13s %.3e (<= %.0e)' % (tag, nm, err, tol))
+    for nm, (err, tol) in errs.items():
+        check(err <= tol, 'stage A %s %s: %.3e > %.0e' % (tag, nm, err, tol))
 
 
-def golden_errs(mod, g):
-    """(J floored@1e-10, dy/dt norm-relative per state) of ``mod`` on the
-    golden states of ``g`` against its reference-C values, with the
-    Jacobian in the reference's column-major layout."""
+def gate_stage_b(sj, tag, cgot, cref, a, what='stage B', whole=False):
+    """Hold a column kernel's J (K2 or K2x) against ``stage_b_reference``'s
+    on the same stage-A outputs ``a``, as phases 6 and 9a hold K6/K7 and
+    K4: J's species rows floored at 1e-10 of each state's J, its
+    temperature row on the summed magnitude of the terms it adds (that
+    row cancels, so on the floored scale two summation orders differ
+    most there); with ``whole``, also the whole J floored (phase 3)."""
+    torch.cuda.synchronize()
+    e = floored_err(cgot, cref, 1e-10)
+    dcol = torch.einsum('jnr,jrb->jnb', sj.nuc, a['src'][sj.gidx])
+    gross = t_row_gross(dcol, sj.inv_mw, a['post'], sj.conp)
+    del dcol
+    errs = {'J Y': (float(e[:, 1:].max()), TOL_BIG_J),
+            'J T on terms': (float(((cgot[:, 0] - cref[:, 0]).abs() /
+                                    gross).max()), TOL_BIG_JT)}
+    if whole:
+        errs['J floored'] = (float(e.max()), TOL_J)
+    print('  %s %s J T floored@1e-10 %.3e' % (what, tag, float(e[:, 0].max())))
+    del e, gross
+    for nm, (err, tol) in errs.items():
+        print('  %s %s %-12s %.3e (<= %.0e)' % (what, tag, nm, err, tol))
+    for nm, (err, tol) in errs.items():
+        check(err <= tol, '%s %s %s: %.3e > %.0e' % (what, tag, nm, err, tol))
+
+
+def phase_golden(goldens, device, card):
+    """Phase 4: the reference-C golden states through SparseJacobian: the
+    flagship's at the repo's parity gates, the all-features synth's at
+    ``TestAllFeaturesGolden``'s (J and dy/dt floored at 1e-9)."""
+    for name, packed in goldens:
+        g = np.load(os.path.join(DATA, 'golden_%s_refc.npz' % name))
+        sj = SparseJacobian(packed, device=device)
+        if name == 'flagship':
+            errJ, errf = golden_errs(sj, g)
+            what, tol_f = 'J floored@1e-10', TOL_GOLDEN_F
+            fwhat = 'dy/dt norm-rel'
+        else:
+            errJ, errf = golden_errs(sj, g, floor=1e-9, f_floor=1e-9)
+            what, tol_f = 'J floored@1e-9', TOL_SYNTH_GOLDEN_F
+            fwhat = 'dy/dt floored@1e-9'
+        print('phase 4 golden %s (SparseJacobian): %s %.3e (< %.0e), %s '
+              '%.3e (< %.0e) (%s)' % (name, what, errJ, TOL_GOLDEN_J, fwhat,
+                                      errf, tol_f, card))
+        check(errJ < TOL_GOLDEN_J, 'golden %s J %.3e' % (name, errJ))
+        check(errf < tol_f, 'golden %s dy/dt %.3e' % (name, errf))
+
+
+def golden_errs(mod, g, floor=1e-10, f_floor=None):
+    """(J floored@``floor``, dy/dt norm-relative per state, or floored at
+    ``f_floor`` when given) of ``mod`` on the golden states of ``g``
+    against its reference-C values, with the Jacobian in the reference's
+    column-major layout."""
     J, f = mod(torch.as_tensor(g['y'], device=mod.device),
                torch.as_tensor(g['P'], device=mod.device))
     n = len(g['T'])
@@ -373,10 +464,15 @@ def golden_errs(mod, g):
           'golden: non-finite output')
     ref = g['ref_jac']
     denom = np.maximum(np.abs(ref),
-                       np.abs(ref).max(-1, keepdims=True) * 1e-10 + 1e-300)
+                       np.abs(ref).max(-1, keepdims=True) * floor + 1e-300)
     fr = g['ref_dydt']
-    return (float((np.abs(Jl - ref) / denom).max()),
-            float((np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max()))
+    if f_floor is None:
+        ef = (np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max()
+    else:
+        ef = (np.abs(f - fr) / np.maximum(
+            np.abs(fr), np.abs(fr).max(-1, keepdims=True) * f_floor +
+            1e-300)).max()
+    return float((np.abs(Jl - ref) / denom).max()), float(ef)
 
 
 def phase_main(sj, packed, device, B, card):
@@ -421,13 +517,104 @@ def phase_main(sj, packed, device, B, card):
                                  '%.3f' % ms[k + '_lib'] if k + '_lib' in ms
                                  else 'none', B, card))
     J, N = sj.J, sj.N
-    tabs = [t for k, t in sj._buffers.items() if k.startswith('ka_')]
     bounds = {
-        'stage_a': bound(nbytes(y_t, P_t, *tabs, *a.values())),
+        'stage_a': stage_a_bound(sj, y_t, P_t, a),
         'stage_b': bound(nbytes(a['src'], a['post'], sj.col_ptr, sj.col_src,
                                 sj.col_coef, sj.inv_mw) + 8 * J * N * B,
                          2 * len(sj.col_coef) * B + 8 * J * N * B)}
     return dict(counts=counts, ms=ms, total_ms=total_ms, bounds=bounds)
+
+
+def stage_a_bound(sj, y_t, P_t, out):
+    """K1's bound: the states and the tables it reads (K5's ``kp_``, the
+    closure's ``kf_`` and ``ka_eff_val``) read once, its outputs ``out``
+    written once."""
+    tabs = [t for k, t in sj._buffers.items()
+            if k.startswith(('kp_', 'kf_', 'ka_'))]
+    return bound(nbytes(y_t, P_t, *tabs, *out.values()))
+
+
+def phase_synth_main(packed, device, B, card):
+    """Phase 5b: the all-features synth at the flagship's width through
+    ``SparseJacobian.call_tr`` at B, fused (K1 + K2) then unfused (K1, the
+    gather, K2x), each timed as phase 5 with its counters set to 0 just
+    before and read just after; the fused path's profiler split; K1's
+    outputs at B held against ``stage_a_reference``'s, and K2's and K2x's
+    J on those outputs against ``stage_b_reference``'s, at phase 3's
+    tolerances; K1 alone beside its plain version and its bound; J and
+    dy/dt against ``DenseJacobian`` (K4) on ``SYNTH_CROSS_B`` of the
+    states, a check beside those gates."""
+    y_t, P_t = big_states(packed, B, device)
+    sj = SparseJacobian(packed, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, counts, chk = timed_path(sj, y_t, P_t, ('stage_a', 'stage_b'))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    print('phase 5b all-features synth %d/%d path: B=%d, best of 3 %.3f ms '
+          '= %.0f evals/s, checksums %s, peak %.2f GiB, launches %s (%s)' % (
+              sj.N, sj.R, B, ms, B / (ms * 1e-3), ['%.6e' % c for c in chk],
+              peak, counts, card))
+    print_profile('synth path', lambda: [torch.sum(x)
+                                         for x in sj.call_tr(y_t, P_t)],
+                  card, split=(('K1', 'sparse_stage_a'),
+                               ('K2', 'sparse_stage_b')),
+                  rest='checksum reductions',
+                  need={'sparse_stage_a': 3, 'sparse_stage_b': 3})
+    res = {'counts': counts, 'total_ms': ms, 'ms': {}}
+    # K1, then K2 on K1's outputs, against their plain versions at B
+    tag = 'synth53 conp B=%d' % B
+    a = sj.stage_a(y_t, P_t)
+    ref = stage_a_reference(packed, y_t, P_t, True)
+    gate_stage_a(sj, y_t, P_t, a, ref, tag)
+    del ref
+    gate_stage_b(sj, tag, sj.stage_b(a['src'], a['post']),
+                 stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, a['src'],
+                                   a['post'], True), a)
+    torch.cuda.empty_cache()
+    res['ms']['stage_a'] = best_ms(lambda: sj.stage_a(y_t, P_t))
+    res['ms']['stage_a_plain'] = best_ms(
+        lambda: stage_a_reference(packed, y_t, P_t, True), reps=2)
+    res['bound'] = stage_a_bound(sj, y_t, P_t, a)
+    print('  stage_a (synth): kernel %.3f ms, plain version %.3f ms, library '
+          'call none, bound %.3f ms (%s) (B=%d, %s)' % (
+              res['ms']['stage_a'], res['ms']['stage_a_plain'],
+              res['bound'][0], res['bound'][1], B, card))
+    del a
+    # J and dy/dt against K4 on a slice
+    Bc = SYNTH_CROSS_B
+    yc, Pc = y_t[:, :Bc].contiguous(), P_t[:, :Bc].contiguous()
+    Jd, fd = DenseJacobian(packed, device=device).call_tr(yc, Pc)
+    cols, col0, fs = sj.call_tr(yc, Pc)
+    ex = floored(full_J(cols, col0), Jd, 1e-10)
+    exf = state_rel(fs, fd)
+    print('  synth vs DenseJacobian (K4), B=%d: J floored@1e-10 %.3e (<= '
+          '%.0e), dy/dt per state %.3e (<= %.0e)' % (Bc, ex, TOL_CROSS, exf,
+                                                     TOL_NET))
+    check(ex <= TOL_CROSS, 'synth: SparseJacobian vs DenseJacobian J %.3e'
+          % ex)
+    check(exf <= TOL_NET, 'synth: SparseJacobian vs DenseJacobian dy/dt '
+          '%.3e' % exf)
+    cols_fused = cols
+    del Jd, fd, col0, fs, sj
+    torch.cuda.empty_cache()
+    # the unfused path
+    sx = SparseJacobian(packed, fuse_gather=False, device=device)
+    msx, cx, chkx = timed_path(sx, y_t, P_t, ('stage_a', 'stage_b_x'))
+    check(cx['stage_b'] == 0, 'the unfused synth path launched K2')
+    res.update(counts_unfused=cx, total_ms_unfused=msx)
+    ex = floored(sx.call_tr(yc, Pc)[0], cols_fused, 1e-10)
+    print('phase 5b all-features synth fuse_gather=False path: B=%d, best of '
+          '3 %.3f ms = %.0f evals/s, checksums %s, launches %s; J vs the '
+          'fused path (B=%d) floored@1e-10 %.3e (<= %.0e) (%s)' % (
+              B, msx, B / (msx * 1e-3), ['%.6e' % c for c in chkx], cx, Bc,
+              ex, TOL_J, card))
+    check(ex <= TOL_J, 'synth: unfused vs fused J %.3e' % ex)
+    del cols_fused
+    # K2x on K1's outputs against its plain version at B
+    a = sx.stage_a(y_t, P_t)
+    gate_stage_b(sx, tag, *k2x_vs_plain(sx, a), a, what='K2x')
+    del sx, y_t, P_t, a
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -914,10 +1101,7 @@ def phase_dense_kernels(cases, device, card):
     row's ``max_abs_err`` (CONP)."""
     res = {}
     for name, packed, B, main in cases:
-        if name == 'flagship':
-            y_t, P_t = to_tr(*flagship_states(B), device)
-        else:
-            y_t, P_t = big_states(packed, B, device)
+        y_t, P_t = case_states(name, packed, B, device)
         for conp in (True, False):
             param = P_t if conp else own_density(packed, y_t, P_t)
             dj = DenseJacobian(packed, conp=conp, device=device)
@@ -928,7 +1112,10 @@ def phase_dense_kernels(cases, device, card):
                     'col0 Y': (state_rel(got[0, 1:], ref[0, 1:]), TOL_NET),
                     'f T': (row_rel(gf[:1], rf[:1]), TOL_NET),
                     'f Y': (state_rel(gf[1:], rf[1:]), TOL_NET),
-                    'f Y per row': (row_rel(gf[1:], rf[1:]), TOL_F_ROW)}
+                    'f Y on terms': (float(
+                        ((gf[1:] - rf[1:]).abs() /
+                         f_gross(packed, y_t, param, conp)).max()),
+                        TOL_F_GROSS)}
             e = floored_err(got, ref, 1e-10)
             errs['J Y'] = (float(e[1:, 1:].max()), TOL_BIG_J)
             print('  K4 %s %s B=%d J T floored@1e-10 %.3e' % (
@@ -972,16 +1159,23 @@ def dense_t_gross(packed, y_t, param, conp):
     return t_row_gross(mags[0], inv_mw, post, conp, mags=mags)
 
 
+def k2x_vs_plain(sx, a):
+    """(K2x's J, ``stage_b_reference``'s) on the operand gathered from K1's
+    outputs ``a`` by the unfused module ``sx``."""
+    p1 = sx.stage_gather(a['src'])
+    got = sx.stage_b_x(p1, a['post'])
+    rows = torch.arange(sx.J * sx.Rmax, device=p1.device).view(sx.J,
+                                                               sx.Rmax)
+    return got, stage_b_reference(rows, sx.nuc, sx.inv_mw, p1, a['post'],
+                                  sx.conp)
+
+
 def phase_k2x(packed, device, B, card):
     """Phase 9b: K2x against ``stage_b_reference`` on the gathered operand,
     the same K1 outputs, at the timed shape (phase 11d)."""
     sx = SparseJacobian(packed, fuse_gather=False, device=device)
     y_t, P_t = to_tr(*flagship_states(B), device)
-    a = sx.stage_a(y_t, P_t)
-    p1 = sx.stage_gather(a['src'])
-    got = sx.stage_b_x(p1, a['post'])
-    rows = torch.arange(sx.J * sx.Rmax, device=device).view(sx.J, sx.Rmax)
-    ref = stage_b_reference(rows, sx.nuc, sx.inv_mw, p1, a['post'])
+    got, ref = k2x_vs_plain(sx, sx.stage_a(y_t, P_t))
     torch.cuda.synchronize()
     err = floored(got, ref, 1e-10)
     print('phase 9b K2x vs plain: J floored@1e-10 %.3e (<= %.0e) (B=%d, %s)'
@@ -1449,8 +1643,8 @@ def phase_f32_kernels(cases, device, card):
                       'f': f32_err(gf.double(), f64)[:2]})
             del got, gf, J64, f64
             torch.cuda.empty_cache()
-    # the flagship golden: J gated; dy/dt printed (PaSR states near
-    # equilibrium cancel beyond float32)
+    # the flagship golden: J at the f32 metric; dy/dt (PaSR states near
+    # equilibrium cancel beyond float32) at twice the JAX kernel's reading
     packed = cases[0][1]
     g = np.load(os.path.join(DATA, 'golden_flagship_refc.npz'))
     fj = F32Jacobian(packed, device=device)
@@ -1463,11 +1657,14 @@ def phase_f32_kernels(cases, device, card):
     ef = f32_err(f.double(), fr)
     nrel = float(((f.double() - fr).abs().amax(1) / fr.abs().amax(1)).max())
     print('phase 12 golden flagship (F32Jacobian): J finite share %.6f, max '
-          '|diff| / scale %.3e (< %.0e); dy/dt (not gated) max |diff| / scale '
-          '%.3e, norm-rel per state %.3e (%s)' % (eJ[0], eJ[1], TOL_F32, ef[1],
-                                                  nrel, card))
+          '|diff| / scale %.3e (< %.0e); dy/dt finite share %.6f, max |diff| '
+          '/ scale %.3e (< %.2f), norm-rel per state %.3e (%s)' % (
+              eJ[0], eJ[1], TOL_F32, ef[0], ef[1], TOL_F32_GOLDEN_F, nrel,
+              card))
     check(eJ[0] >= F32_FINITE and eJ[1] < TOL_F32,
           'golden through F32Jacobian: J %s' % (eJ[:2],))
+    check(ef[0] >= F32_FINITE and ef[1] < TOL_F32_GOLDEN_F,
+          'golden through F32Jacobian: dy/dt %s' % (ef[:2],))
     print('phase 12 K3 vs plain: ok (%s)' % card)
     return res
 
@@ -1528,12 +1725,14 @@ def phase_bench(device, card):
     return res
 
 
-def kernel_rows(errs, main_res, big, integ, f32):
+def kernel_rows(errs, main_res, synth, big, integ, f32):
     """The kernels line: one row per ported TPU kernel.  ``launches`` is
     the count of the path at whose shape the kernel is timed;
     ``launches_by_path`` every path's run."""
     flag = {'flagship': main_res['counts'],
-            'flagship_unfused': integ['counts_unfused']}
+            'flagship_unfused': integ['counts_unfused'],
+            'synth53': synth['counts'],
+            'synth53_unfused': synth['counts_unfused']}
     rows = []
     for name, src, line in (
             ('stage_a', 'sparse_stage_a.cu', 'pallas_dd.py:2099'),
@@ -1592,18 +1791,22 @@ def main():
     sass_dump = start_sass_dump(kernels.build_info['library'])
 
     mech, packed = flagship()
+    p_syn = packed_from_text(synthetic_mechanism(9, 24, seed=7))[1]
+    p_syn53 = packed_from_text(synthetic_mechanism(53, 325, seed=7))[1]
+    errs = phase_kernels_vs_plain((('flagship', packed, 16384, True),
+                                   ('synth53', p_syn53, 16384, False)),
+                                  device, card)
+    phase_golden((('flagship', packed), ('synth', p_syn)), device, card)
     sj = SparseJacobian(packed, device=device)
-    errs = phase_kernels_vs_plain(sj, packed, device, 16384, card)
-    phase_golden(sj, device, card)
     main_res = phase_main(sj, packed, device, 131072, card)
     del sj
     torch.cuda.empty_cache()
+    synth = phase_synth_main(p_syn53, device, 131072, card)
     phase_sass_f64(sass_dump)
-    seconds = {'1-5': time.perf_counter() - t0}
+    seconds = {'1-5b': time.perf_counter() - t0}
 
     p654 = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
     p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
-    p_syn = packed_from_text(synthetic_mechanism(9, 24, seed=7))[1]
     # batch of each phase-8 path; phase 6 checks the kernels at each
     sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
     errs.update(phase_big_kernels((
@@ -1640,7 +1843,7 @@ def main():
         ', '.join('%s %.1f' % kv for kv in seconds.items()),
         time.perf_counter() - t0))
 
-    rows = kernel_rows(errs, main_res, big, integ, f32)
+    rows = kernel_rows(errs, main_res, synth, big, integ, f32)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

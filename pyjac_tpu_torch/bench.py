@@ -7,7 +7,7 @@ same states and timing rule, on the 53-species / 325-reaction flagship
 
 * the headline: the PaSR states of ``tests/data/flagship_states.npz``
   tiled to B = 131072 through ``SparseJacobian`` (K1 + K2;
-  ``DenseJacobian``, K4, for a mechanism K1 does not cover), f64; one
+  ``DenseJacobian``, K4, where ``SparseJacobian`` refuses), f64; one
   untimed call, then 3
   passes of 8 queued calls with one host sync each on a ``torch.sum`` of
   every output;

@@ -44,7 +44,9 @@ big_parts_kernel(PartsTables<double> t, PartsDims<double> d,
                  long long B, double* __restrict__ roles) {
   const long long b = (long long)blockIdx.y * blockDim.x + threadIdx.x;
   if (b >= B || blockIdx.x >= (unsigned)d.rows) return;
-  reaction_parts<double, HAS_PM>(t, d, st, B, b, d.row0 + blockIdx.x, roles);
+  const int r = d.row0 + blockIdx.x;
+  store_roles(reaction_parts<double, HAS_PM>(t, d, st, B, b, r, roles),
+              roles, (size_t)(d.Sf + d.Sp) * d.R + r, d.R, B, b);
 }
 
 extern "C" int pyjac_big_parts_n_tables(void) { return N_TABLES; }

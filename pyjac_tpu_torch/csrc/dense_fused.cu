@@ -39,7 +39,9 @@
 // rows; (3) the stoichiometric contractions of species n = w, ..., each
 // walking its column of nu_net (a CSR over reactions) with the four sums
 // in registers; (4) the closure on warp 0: dy/dt, the temperature column
-// and the post rows; (5) columns j = w, ... (`finish_column`, the K6
+// and the post rows (phases 1, 3 and 4 are csrc/kinetics.cuh's
+// state_phase, contract_phase and closure, which K1 runs too); (5)
+// columns j = w, ... (`finish_column`, the K6
 // body), each walking the nonzeros of its operand x nu_net as a CSR over
 // (column, species row) with the row sum in a register, so every J entry
 // is written once.  Nothing is read-modify-written and nothing needs
@@ -54,16 +56,17 @@
 
 #define WARPS 4
 
-// matches the numpy table order of jacobian_dense.fused_tables after the
+// matches the numpy table order of jacobian_dense.fused_tables (the
+// closure's jacobian_sparse.finish_tables, then the column CSR) after the
 // K5 tables (jacobian_big.parts_tables)
 template <typename S>
 struct DenseTables {
   PartsTables<S> p;
-  const S *mw, *T_mid, *a_lo, *a_hi, *at_last, *pd_last, *nut_val,
-      *col_coef;
-  const int *nut_ptr, *nut_row, *col_ptr, *col_src;
+  FinishTables<S> f;
+  const S* col_coef;
+  const int *col_ptr, *col_src;
 };
-#define N_TABLES (N_PARTS_TABLES + 12)
+#define N_TABLES (N_PARTS_TABLES + N_FINISH_TABLES + 3)
 static_assert(sizeof(DenseTables<double>) == N_TABLES * sizeof(void*),
               "DenseTables must be N_TABLES pointers");
 #define N_DIMS 11
@@ -86,144 +89,47 @@ dense_fused_kernel(DenseTables<S> t, PartsDims<S> d, int has_spec,
   const bool live = b < B;
   const int N = d.N, R = d.R, J = N - 1, conp = d.conp;
   const int k = d.Sf + d.Sp;
-  const PartsTables<S>& p = t.p;
 
   S* st = scratch;
-  S* conc = st + (size_t)5 * B;
-  S* smh = st + (size_t)(5 + N) * B;
-  S* dsmh = st + (size_t)(5 + 2 * N) * B;
   S* roles = st + (size_t)(5 + 3 * N) * B;
   // post rows (jacobian_sparse.post_rows)
   S* post = roles + (size_t)(k + 6) * R * B;
-  S* v_u = post;
-  S* v_c = post + (size_t)N * B;
-  S* eWn = post + (size_t)2 * N * B;
-  S* cpr = post + (size_t)3 * N * B;
-  S* fkJ = post + (size_t)4 * N * B;
-  S* mr = post + (size_t)(4 * N + J) * B;
   S* hrow = post + (size_t)(4 * N + 2 * J + 3) * B;
   S* dcpr = hrow + (size_t)N * B;
   S* omega = hrow + (size_t)2 * N * B;
   S* domega = hrow + (size_t)3 * N * B;
 
   // --- 1. state and NASA-7 thermo (jacobian_big.state_thermo) -------------
-  S T = S(0), rho = S(0), mw_avg = S(0), yN = S(0), dlnrho_dT = S(0);
-  if (live) {
-    T = AT(y, 0);
-    const S Pv = AT(Pin, 0);
-    S sumY = S(0), sumYw = S(0);
-    for (int n = 0; n < J; ++n) {
-      const S Yn = AT(y, 1 + n);
-      sumY += Yn;
-      sumYw += Yn * p.inv_mw[n];
-    }
-    yN = S(1) - sumY;
-    mw_avg = S(1) / (sumYw + yN * p.inv_mw[N - 1]);
-    S pres;
-    if (conp) {
-      pres = Pv;
-      rho = pres * mw_avg / (S(RU) * T);
-      dlnrho_dT = -S(1) / T;
-    } else {
-      rho = Pv;
-      pres = rho * S(RU) * T / mw_avg;
-    }
-    const S logT = klog(T);
-    if (w == 0) {
-      AT(st, 0) = T;
-      AT(st, 1) = logT;
-      AT(st, 2) = pres;
-      AT(st, 3) = rho;
-      AT(st, 4) = mw_avg;
-    }
-    for (int n = w; n < N; n += WARPS) {
-      const S Yn = n < J ? AT(y, 1 + n) : yN;
-      AT(conc, n) = rho * Yn * p.inv_mw[n];
-      const S* a = (T <= t.T_mid[n] ? t.a_lo : t.a_hi) + 7 * n;
-      S cp, e, smh_n, dsmh_n, dcp;
-      species_thermo(a, S(RU) * p.inv_mw[n], T, logT, conp, cp, e, smh_n,
-                     dsmh_n, dcp);
-      AT(smh, n) = smh_n;
-      AT(dsmh, n) = dsmh_n;
-      AT(cpr, n) = cp;
-      AT(hrow, n) = e;
-      AT(dcpr, n) = dcp;
-    }
-  }
+  StateScalars<S> s = {};
+  if (live)
+    s = state_phase(t.p, t.f, N, conp, y, Pin, B, b, w, WARPS, st,
+                    post + (size_t)3 * N * B, hrow, dcpr);
   __syncthreads();
 
   // --- 2. reaction parts into the role rows ---------------------------------
   if (live)
     for (int r = w; r < R; r += WARPS)
-      reaction_parts<S, HAS_PM>(p, d, st, B, b, r, roles);
+      store_roles(reaction_parts<S, HAS_PM>(t.p, d, st, B, b, r, roles),
+                  roles, (size_t)k * R + r, R, B, b);
   __syncthreads();
 
   // --- 3. stoichiometric contractions nu_net^T [q, dq_dT, c_u, cv] -----------
-  if (live) {
-    const size_t kq = (size_t)k * R;
-    for (int n = w; n < N; n += WARPS) {
-      S om = S(0), dom = S(0), vu = S(0), vc = S(0);
-      for (int e = t.nut_ptr[n]; e < t.nut_ptr[n + 1]; ++e) {
-        const int r = t.nut_row[e];
-        const S nu = t.nut_val[e];
-        S cv = AT(roles, kq + 3 * (size_t)R + r);
-        if (HAS_PM) {
-          cv = cv - AT(roles, kq + 4 * (size_t)R + r) * t.at_last[r];
-          if (has_spec)
-            cv = cv + AT(roles, kq + 5 * (size_t)R + r) * t.pd_last[r];
-        }
-        om += nu * AT(roles, kq + r);
-        dom += nu * AT(roles, kq + (size_t)R + r);
-        vu += nu * AT(roles, kq + 2 * (size_t)R + r);
-        vc += nu * cv;
-      }
-      AT(omega, n) = om;
-      AT(domega, n) = dom;
-      AT(v_u, n) = vu;
-      AT(v_c, n) = vc;
-    }
-  }
+  if (live)
+    contract_phase<S, HAS_PM>(t.f, has_spec, N, R, roles + (size_t)k * R * B,
+                              B, b, w, WARPS, omega, domega, post,
+                              post + (size_t)N * B);
   __syncthreads();
 
   // --- 4. closure: dy/dt, the temperature column, the post rows ---------------
-  if (live && w == 0) {
-    S sh = S(0), dsh = S(0);
-    for (int n = 0; n < N; ++n) {
-      const S Yn = n < J ? AT(y, 1 + n) : yN;
-      sh += AT(cpr, n) * Yn;
-      dsh += AT(dcpr, n) * Yn;
-    }
-    const S rho_inv = S(1) / rho;
-    const S denomT = rho * sh;
-    S fT = S(0), s1 = S(0), s2 = S(0);
-    for (int n = 0; n < N; ++n) {
-      const S om = AT(omega, n);
-      const S ew = AT(hrow, n) * t.mw[n] / denomT;
-      AT(eWn, n) = ew;
-      fT -= ew * om;
-      s1 += AT(cpr, n) * t.mw[n] * om / denomT;
-      s2 += ew * AT(domega, n);
-    }
-    AT(Jt, 0) = -(s1 + s2) - fT * (dlnrho_dT + dsh / sh);
-    AT(fout, 0) = fT;
-    for (int n = 0; n < J; ++n) {
-      const S fk = AT(omega, n) * t.mw[n] * rho_inv;
-      AT(Jt, 1 + n) = t.mw[n] * rho_inv * AT(domega, n) - fk * dlnrho_dT;
-      AT(fout, 1 + n) = fk;
-      AT(fkJ, n) = fk;
-      AT(mr, n) = t.mw[n] * rho_inv;
-    }
-    AT(post, 4 * N + 2 * J) = S(1) / sh;
-    AT(post, 4 * N + 2 * J + 1) = mw_avg;
-    AT(post, 4 * N + 2 * J + 2) = fT;
-  }
+  if (live && w == 0)
+    closure(t.f, N, y, s, hrow, dcpr, omega, domega, B, b, post, Jt, fout);
   __syncthreads();
 
   // --- 5. the columns 1..J ------------------------------------------------------
   if (live)
     for (int j = w; j < J; j += WARPS)
       finish_column(t.col_ptr + (size_t)j * N, t.col_src, t.col_coef,
-                    p.inv_mw, roles, post, Jt + (size_t)(j + 1) * N * B, j,
+                    t.p.inv_mw, roles, post, Jt + (size_t)(j + 1) * N * B, j,
                     N, conp, B, b);
 }
 

@@ -4,7 +4,11 @@
 // * species_thermo: the NASA-7 thermo of one species (K1, K3, K4);
 // * reaction_parts: the per-(reaction, state) body of the large-mechanism
 //   parts kernel K5 (csrc/big_parts.cu), which the dense fused kernels K4
-//   and K3 (csrc/dense_fused.cu) run on every reaction of a state;
+//   and K3 (csrc/dense_fused.cu) and the sparse stage-A kernel K1
+//   (csrc/sparse_stage_a.cu) run on every reaction of a state;
+// * state_phase, contract_phase, closure: the per-state phases of K1, K4
+//   and K3 around their reaction parts (thermo; nu_net^T contractions;
+//   dy/dt, the temperature column and the column-finishing rows);
 // * finish_column: one Jacobian column from a CSR contraction of its
 //   operand rows and the column-finishing `post` rows (`_post_col`), the
 //   body of K4's and K3's column loop (the column kernels K6/K2x and K7
@@ -181,16 +185,38 @@ __device__ __forceinline__ S slot_products(const S* __restrict__ conc,
   return total;
 }
 
+// the six per-reaction roles after the slot roles of the role array
+template <typename S>
+struct ReactionRoles {
+  S q, dq_dT, c_u, c_1, psi_q, xi_q;
+};
+
+// the six roles into rows k, k + R, ..., k + 5R of out: reaction r's rows
+// of [q; dq_dT; c_u; c_1; psi_q; xi_q] when k is r plus those rows' first
+template <typename S>
+__device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
+                                            S* __restrict__ out, size_t k,
+                                            int R, long long B, long long b) {
+  AT(out, k) = v.q;
+  AT(out, k + R) = v.dq_dT;
+  AT(out, k + 2 * (size_t)R) = v.c_u;
+  AT(out, k + 3 * (size_t)R) = v.c_1;
+  AT(out, k + 4 * (size_t)R) = v.psi_q;
+  AT(out, k + 5 * (size_t)R) = v.xi_q;
+}
+
 // Reaction r of state b (`_compute_reaction_parts` + `_pdep_falloff_vals`)
 // from the (5 + 3N, B) state/thermo rows st = [T, ln T, P, rho, mw_avg,
-// conc, smh, dsmh] (jacobian_big.state_thermo); writes row r of each
-// role of roles (Sf + Sp + 6, R, B):
-//   [vals_f_s; vals_p_s; q; dq_dT; c_u; c_1; psi_q; xi_q].
-// HAS_PM = false drops the pressure-modification machinery.
+// conc, smh, dsmh] (jacobian_big.state_thermo): the role array (Sf + Sp +
+// 6, R, B) is [vals_f_s; vals_p_s; q; dq_dT; c_u; c_1; psi_q; xi_q]; this
+// writes row r of the Sf + Sp slot roles at slots and returns the six
+// others, which the caller stores (K5, K4 and K3 after the slots, with
+// store_roles; K1 into a scratch, and psi_q and xi_q into its source
+// stack).  HAS_PM = false drops the pressure-modification machinery.
 template <typename S, bool HAS_PM>
-__device__ __forceinline__ void reaction_parts(
+__device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const PartsTables<S>& t, const PartsDims<S>& d, const S* __restrict__ st,
-    long long B, long long b, int r, S* __restrict__ roles) {
+    long long B, long long b, int r, S* __restrict__ slots) {
   const int N = d.N, R = d.R, Sf = d.Sf, Sp = d.Sp, conp = d.conp;
   const int fl = t.flags[r];
   const S tiny = Num<S>::tiny();
@@ -409,20 +435,181 @@ __device__ __forceinline__ void reaction_parts(
   for (int s = 0; s < Sf; ++s) {
     const S kd = kf * dpf[s];
     if (rsp[s] == N - 1) dlf = dlf + kd;
-    AT(roles, (size_t)s * R + r) = pmrho * kd;
+    AT(slots, (size_t)s * R + r) = pmrho * kd;
   }
   for (int s = 0; s < Sp; ++s) {
     const S kd = kr * dpr[s];
     if (psp[s] == N - 1) dlr = dlr + kd;
-    AT(roles, (size_t)(Sf + s) * R + r) = pmrho * kd;
+    AT(slots, (size_t)(Sf + s) * R + r) = pmrho * kd;
   }
-  const size_t k = (size_t)(Sf + Sp) * R + r;
-  AT(roles, k) = q;
-  AT(roles, k + R) = dq_dT;
-  AT(roles, k + 2 * (size_t)R) = c_u;
-  AT(roles, k + 3 * (size_t)R) = -pm * rho * t.inv_mw[N - 1] * (dlf - dlr);
-  AT(roles, k + 4 * (size_t)R) = psi * qnet;
-  AT(roles, k + 5 * (size_t)R) = xi * qnet;
+  return {q, dq_dT, c_u, -pm * rho * t.inv_mw[N - 1] * (dlf - dlr),
+          psi * qnet, xi * qnet};
+}
+
+// ---------------------------------------------------------------------------
+// The per-state phases around the reaction parts that K1
+// (csrc/sparse_stage_a.cu) and K4 / K3 (csrc/dense_fused.cu) share: the
+// state and thermo before them, the stoichiometric contractions and the
+// closure (`_finish_dd`) after them.  A block owns 32 consecutive states
+// (lane = state b) and runs W warps over them; warp w takes species
+// w, w + W, ...; the kernel puts a __syncthreads() between two phases and
+// calls each for its live lanes only.
+
+// matches the numpy table order of jacobian_sparse.finish_tables; in K1's
+// and K4's table structs it follows the PartsTables
+template <typename S>
+struct FinishTables {
+  const S *mw, *T_mid, *a_lo, *a_hi, *at_last, *pd_last, *nut_val;
+  const int *nut_ptr, *nut_row;
+};
+#define N_FINISH_TABLES 9
+static_assert(sizeof(FinishTables<double>) == N_FINISH_TABLES * sizeof(void*),
+              "FinishTables must be N_FINISH_TABLES pointers");
+
+// the state scalars the closure needs
+template <typename S>
+struct StateScalars {
+  S rho, mw_avg, yN, dlnrho_dT;
+};
+
+// 1. the state and the NASA-7 thermo (jacobian_big.state_thermo) of state
+// b from y (N, B) and Pin (1, B) (pressure under CONP, density under
+// CONV): the (5 + 3N) rows st that reaction_parts reads (warp 0 writes the
+// five state rows), and per species cp (cv) into cpr, h (u) into hrow and
+// dcp/dT into dcpr
+template <typename S>
+__device__ __forceinline__ StateScalars<S> state_phase(
+    const PartsTables<S>& p, const FinishTables<S>& f, int N, int conp,
+    const S* __restrict__ y, const S* __restrict__ Pin, long long B,
+    long long b, int w, int W, S* __restrict__ st, S* __restrict__ cpr,
+    S* __restrict__ hrow, S* __restrict__ dcpr) {
+  const int J = N - 1;
+  S* conc = st + (size_t)5 * B;
+  S* smh = st + (size_t)(5 + N) * B;
+  S* dsmh = st + (size_t)(5 + 2 * N) * B;
+  StateScalars<S> s;
+  const S T = AT(y, 0);
+  const S Pv = AT(Pin, 0);
+  S sumY = S(0), sumYw = S(0);
+  for (int n = 0; n < J; ++n) {
+    const S Yn = AT(y, 1 + n);
+    sumY += Yn;
+    sumYw += Yn * p.inv_mw[n];
+  }
+  s.yN = S(1) - sumY;
+  s.mw_avg = S(1) / (sumYw + s.yN * p.inv_mw[N - 1]);
+  S pres;
+  if (conp) {
+    pres = Pv;
+    s.rho = pres * s.mw_avg / (S(RU) * T);
+    s.dlnrho_dT = -S(1) / T;
+  } else {
+    s.rho = Pv;
+    pres = s.rho * S(RU) * T / s.mw_avg;
+    s.dlnrho_dT = S(0);
+  }
+  const S logT = klog(T);
+  if (w == 0) {
+    AT(st, 0) = T;
+    AT(st, 1) = logT;
+    AT(st, 2) = pres;
+    AT(st, 3) = s.rho;
+    AT(st, 4) = s.mw_avg;
+  }
+  for (int n = w; n < N; n += W) {
+    const S Yn = n < J ? AT(y, 1 + n) : s.yN;
+    AT(conc, n) = s.rho * Yn * p.inv_mw[n];
+    const S* a = (T <= f.T_mid[n] ? f.a_lo : f.a_hi) + 7 * n;
+    S cp, e, smh_n, dsmh_n, dcp;
+    species_thermo(a, S(RU) * p.inv_mw[n], T, logT, conp, cp, e, smh_n,
+                   dsmh_n, dcp);
+    AT(smh, n) = smh_n;
+    AT(dsmh, n) = dsmh_n;
+    AT(cpr, n) = cp;
+    AT(hrow, n) = e;
+    AT(dcpr, n) = dcp;
+  }
+  return s;
+}
+
+// 3. the stoichiometric contractions nu_net^T [q, dq_dT, c_u, cv] of
+// species n = w, w + W, ..., each walking its column of nu_net (a CSR over
+// reactions) with the four sums in registers, from the six per-reaction
+// rows rest (6 R, B) = [q; dq_dT; c_u; c_1; psi_q; xi_q]; cv = c_1 -
+// psi_q at_last + xi_q pd_last.  Writes omega, domega and the post rows
+// v_u, v_c.
+template <typename S, bool HAS_PM>
+__device__ __forceinline__ void contract_phase(
+    const FinishTables<S>& f, int has_spec, int N, int R,
+    const S* __restrict__ rest, long long B, long long b, int w, int W,
+    S* __restrict__ omega, S* __restrict__ domega, S* __restrict__ v_u,
+    S* __restrict__ v_c) {
+  for (int n = w; n < N; n += W) {
+    S om = S(0), dom = S(0), vu = S(0), vc = S(0);
+    for (int e = f.nut_ptr[n]; e < f.nut_ptr[n + 1]; ++e) {
+      const int r = f.nut_row[e];
+      const S nu = f.nut_val[e];
+      S cv = AT(rest, 3 * (size_t)R + r);
+      if (HAS_PM) {
+        cv = cv - AT(rest, 4 * (size_t)R + r) * f.at_last[r];
+        if (has_spec) cv = cv + AT(rest, 5 * (size_t)R + r) * f.pd_last[r];
+      }
+      om += nu * AT(rest, r);
+      dom += nu * AT(rest, (size_t)R + r);
+      vu += nu * AT(rest, 2 * (size_t)R + r);
+      vc += nu * cv;
+    }
+    AT(omega, n) = om;
+    AT(domega, n) = dom;
+    AT(v_u, n) = vu;
+    AT(v_c, n) = vc;
+  }
+}
+
+// 4. the closure on one warp: dy/dt f (N, B), the temperature column col0
+// (N, B) and the post rows eWn, fkJ, mr, ish, mw_avg, fT
+// (jacobian_sparse.post_rows; phase 1 wrote cp, phase 3 v_u and v_c)
+template <typename S>
+__device__ __forceinline__ void closure(
+    const FinishTables<S>& f, int N, const S* __restrict__ y,
+    const StateScalars<S>& s, const S* __restrict__ hrow,
+    const S* __restrict__ dcpr, const S* __restrict__ omega,
+    const S* __restrict__ domega, long long B, long long b,
+    S* __restrict__ post, S* __restrict__ col0, S* __restrict__ fout) {
+  const int J = N - 1;
+  S* eWn = post + (size_t)2 * N * B;
+  const S* cpr = post + (size_t)3 * N * B;
+  S* fkJ = post + (size_t)4 * N * B;
+  S* mr = post + (size_t)(4 * N + J) * B;
+  S sh = S(0), dsh = S(0);
+  for (int n = 0; n < N; ++n) {
+    const S Yn = n < J ? AT(y, 1 + n) : s.yN;
+    sh += AT(cpr, n) * Yn;
+    dsh += AT(dcpr, n) * Yn;
+  }
+  const S rho_inv = S(1) / s.rho;
+  const S denomT = s.rho * sh;
+  S fT = S(0), s1 = S(0), s2 = S(0);
+  for (int n = 0; n < N; ++n) {
+    const S om = AT(omega, n);
+    const S ew = AT(hrow, n) * f.mw[n] / denomT;
+    AT(eWn, n) = ew;
+    fT -= ew * om;
+    s1 += AT(cpr, n) * f.mw[n] * om / denomT;
+    s2 += ew * AT(domega, n);
+  }
+  AT(col0, 0) = -(s1 + s2) - fT * (s.dlnrho_dT + dsh / sh);
+  AT(fout, 0) = fT;
+  for (int n = 0; n < J; ++n) {
+    const S fk = AT(omega, n) * f.mw[n] * rho_inv;
+    AT(col0, 1 + n) = f.mw[n] * rho_inv * AT(domega, n) - fk * s.dlnrho_dT;
+    AT(fout, 1 + n) = fk;
+    AT(fkJ, n) = fk;
+    AT(mr, n) = f.mw[n] * rho_inv;
+  }
+  AT(post, 4 * N + 2 * J) = S(1) / sh;
+  AT(post, 4 * N + 2 * J + 1) = s.mw_avg;
+  AT(post, 4 * N + 2 * J + 2) = fT;
 }
 
 // Jacobian column j + 1 of state b into col (N rows of a batch-minor

@@ -27,26 +27,11 @@ from .common import F64, as_f64, cached, entry_device
 from .jacobian_big import (cols_dense_reference, dense_col_tables, finish,
                            parts_reference, parts_tables, parts_unsupported,
                            state_thermo)
-from .jacobian_sparse import (_csr, column_csr, column_roles, finish_coefs,
-                              role_tables)
+from .jacobian_sparse import (FINISH_INT_TABLES, column_csr, column_roles,
+                              finish_tables, role_tables, supports)
 
-# the int32 tables of fused_tables, after its float64 ones
-FUSED_INT_TABLES = ('nut_ptr', 'nut_row', 'col_ptr', 'col_src')
-
-
-def supports(packed) -> bool:
-    """Whether ``DenseJacobian`` covers the mechanism's reaction
-    categories.
-
-    Mirrors ``pallas_jacobian.supports``: sign-flipping PLOG tables
-    (negative A inside a PLOG ladder) are refused.  Its 50 MB VMEM
-    constant clause is a TPU limit and is not ported.  On the card K4
-    also refuses table sizes it does not unroll
-    (``jacobian_big.parts_unsupported``: moving the module to CUDA
-    raises); the plain version takes any.
-    """
-    return not (packed.has_plog and
-                bool((np.asarray(packed.plog_sign) < 0).any()))
+# the int32 tables of fused_tables
+FUSED_INT_TABLES = FINISH_INT_TABLES + ('col_ptr', 'col_src')
 
 
 def operand_csr(packed):
@@ -85,24 +70,15 @@ def operand_csr(packed):
 def fused_tables(packed) -> dict:
     """The K4 kernel's tables after K5's (``jacobian_big.parts_tables``),
     in the order of the C struct ``DenseTables`` (``csrc/
-    dense_fused.cu``): float64 arrays first, then the int32 arrays of
-    :data:`FUSED_INT_TABLES`.  ``nut_*`` is the CSR of nu_net^T (per
-    species, its reactions); ``col_*`` is :func:`operand_csr`."""
-    f64 = lambda a: np.ascontiguousarray(np.asarray(a, np.float64).ravel())
-    i32 = lambda a: np.ascontiguousarray(np.asarray(a).astype(np.int32)
-                                         .ravel())
-    nut_ptr, nut_row, nut_val = _csr(np.asarray(packed.nu_net,
-                                                np.float64).T)
+    dense_fused.cu``): the per-state phases' (``jacobian_sparse.
+    finish_tables``), then the column CSR ``col_*`` of
+    :func:`operand_csr`.  The int32 arrays are those of
+    :data:`FUSED_INT_TABLES`."""
     col_ptr, col_src, col_coef = operand_csr(packed)
-    last = finish_coefs(packed)
-    return {
-        'mw': f64(packed.mw), 'T_mid': f64(packed.T_mid),
-        'a_lo': f64(packed.a_lo), 'a_hi': f64(packed.a_hi),
-        'at_last': f64(last['at_last']), 'pd_last': f64(last['pd_last']),
-        'nut_val': f64(nut_val), 'col_coef': f64(col_coef),
-        'nut_ptr': i32(nut_ptr), 'nut_row': i32(nut_row),
-        'col_ptr': i32(col_ptr), 'col_src': i32(col_src),
-    }
+    return {**finish_tables(packed),
+            'col_coef': np.ascontiguousarray(col_coef, np.float64),
+            'col_ptr': np.ascontiguousarray(col_ptr, np.int32),
+            'col_src': np.ascontiguousarray(col_src, np.int32)}
 
 
 def dense_reference(packed, y_t, P_t, conp: bool = True):

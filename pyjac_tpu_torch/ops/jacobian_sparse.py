@@ -25,6 +25,8 @@ PyTorch version in this module:
   (``csrc/big_cols_sparse.cu``) on this module's tables; its plain
   version is :func:`stage_b_reference` on the gathered operand.
 
+Both stages take every reaction category the TPU pipeline takes; like
+it, the module refuses a sign-flipping PLOG table (:func:`supports`).
 Differences from the TPU pipeline, all consequences of native f64:
 no double-float pairs, no sliced matmuls (``nuc`` holds the true signed
 ``nu_net`` columns, so there are no "deep" columns and fractional nu is
@@ -43,15 +45,12 @@ from torch import nn
 from .common import F64, as_f64, entry_device, to_device
 from .jacobian import heat_terms, reaction_parts
 
-# largest reactant / product slot count the stage-A kernel unrolls
+# largest reactant / product slot count the CUDA kernels K1, K4, K5
+# unroll
 MAX_SLOTS = 8
 
-# kind codes of the stage-A kernel's per-reaction pressure modification
-KIND_NONE, KIND_THD, KIND_LINDEMANN, KIND_TROE = 0, 1, 2, 3
-
-# the int32 tables of stage_a_tables (all others are float64)
-STAGE_A_INT_TABLES = ('reac_sp', 'prod_sp', 'rev', 'kind', 'troe_has_T2',
-                      'nu_ptr', 'nu_col', 'thd_ptr', 'thd_col')
+# the int32 tables of finish_tables (its others are float64)
+FINISH_INT_TABLES = ('nut_ptr', 'nut_row')
 
 
 # ---------------------------------------------------------------------------
@@ -199,64 +198,57 @@ def post_rows(N: int, J: int) -> dict:
     return out
 
 
-def kernel_unsupported(packed) -> list:
-    """Categories of ``packed`` the CUDA stage-A kernel does not cover
-    (the plain version covers them all)."""
-    flags = [('PLOG', packed.has_plog), ('Chebyshev', packed.has_cheb),
-             ('SRI', packed.has_sri),
-             ('chemically-activated', packed.has_chemact),
-             ('species-specific pdep', packed.has_specific_pdep_sp),
-             ('fractional nu', packed.has_frac_nu),
-             ('more than %d reactant/product slots' % MAX_SLOTS,
-              max(packed.reac_sp.shape[1], packed.prod_sp.shape[1]) >
-              MAX_SLOTS)]
-    return [name for name, bad in flags if bad]
+def supports(packed) -> bool:
+    """Whether the mechanism's reaction categories are inside the
+    coverage of the port's fused kernels (``SparseJacobian``,
+    ``DenseJacobian``, ``F32Jacobian``).
+
+    Mirrors ``pallas_jacobian.supports``, which ``pallas_dd.supports``
+    (the TPU sparse and dense pipelines') calls: sign-flipping PLOG tables
+    (negative A inside a PLOG ladder) are refused.  Its 50 MB VMEM
+    constant clause is a TPU limit and is not ported.  On the card the
+    kernels also refuse table sizes they do not unroll
+    (``jacobian_big.parts_unsupported``: moving a module to CUDA raises);
+    the plain versions take any.
+    """
+    return not (packed.has_plog and
+                bool((np.asarray(packed.plog_sign) < 0).any()))
 
 
-def stage_a_tables(packed, ct) -> dict:
-    """The stage-A kernel's mechanism tables, flattened row-major, in
-    the order of the C struct ``StageATables`` (``csrc/
-    sparse_stage_a.cu``): float64 arrays first, then int32 arrays.
-    Per-reaction nu_net and third-body efficiency rows are CSR."""
-    R = packed.n_reactions
+def finish_tables(packed) -> dict:
+    """The tables of the per-state phases K1 and K4 / K3 share around
+    their reaction parts (the thermo, the nu_net^T contractions and the
+    closure of ``_finish_dd``), flattened row-major in the order of the C
+    struct ``FinishTables`` (``csrc/kinetics.cuh``): float64 arrays
+    first, then the int32 arrays of :data:`FINISH_INT_TABLES`.  ``nut_*``
+    is the CSR of nu_net^T (per species, its reactions)."""
     f64 = lambda a: np.ascontiguousarray(np.asarray(a, np.float64).ravel())
     i32 = lambda a: np.ascontiguousarray(np.asarray(a).astype(np.int32)
                                          .ravel())
-    nu_net = np.asarray(packed.nu_net, np.float64)
-    nu_ptr, nu_col, nu_val = _csr(nu_net)
-    eff = (np.asarray(packed.eff_m1, np.float64) if packed.has_pres_mod
-           else np.zeros_like(nu_net))
-    thd_ptr, thd_col, thd_val = _csr(eff)
-    kind = np.full(R, KIND_NONE)
-    kind[np.asarray(packed.thd_only_mask)] = KIND_THD
-    fall = np.asarray(packed.falloff_mask)
-    troe = np.asarray(packed.troe_mask)
-    kind[fall & ~troe] = KIND_LINDEMANN
-    kind[fall & troe] = KIND_TROE
-    tp = np.asarray(packed.troe_par, np.float64)
+    nut_ptr, nut_row, nut_val = _csr(np.asarray(packed.nu_net,
+                                                np.float64).T)
+    last = finish_coefs(packed)
     return {
-        'mw': f64(packed.mw), 'inv_mw': f64(packed.inv_mw),
-        'T_mid': f64(packed.T_mid), 'a_lo': f64(packed.a_lo),
-        'a_hi': f64(packed.a_hi), 'logA': f64(packed.logA),
-        'beta': f64(packed.beta), 'Ta': f64(packed.Ta),
-        'A_sign': f64(packed.A_sign), 'sum_nu': f64(packed.sum_nu),
-        'ordf': f64(np.asarray(packed.reac_nu).sum(1)),
-        'ordr': f64(np.asarray(packed.prod_nu).sum(1)),
-        'reac_nu': f64(packed.reac_nu), 'prod_nu': f64(packed.prod_nu),
-        'low_logA': f64(packed.low_logA), 'low_beta': f64(packed.low_beta),
-        'low_Ta': f64(packed.low_Ta),
-        'troe_a': f64(tp[:, 0]),
-        'troe_T3': f64(np.where(troe, tp[:, 1], 1.0)),
-        'troe_T1': f64(np.where(troe, tp[:, 2], 1.0)),
-        'troe_T2': f64(tp[:, 3]),
-        'at_last': f64(ct['at_last']), 'eff_val': f64(ct['eff_val']),
-        'nu_val': f64(nu_val), 'thd_val': f64(thd_val),
-        'reac_sp': i32(packed.reac_sp), 'prod_sp': i32(packed.prod_sp),
-        'rev': i32(packed.rev_mask), 'kind': i32(kind),
-        'troe_has_T2': i32(packed.troe_has_T2),
-        'nu_ptr': i32(nu_ptr), 'nu_col': i32(nu_col),
-        'thd_ptr': i32(thd_ptr), 'thd_col': i32(thd_col),
+        'mw': f64(packed.mw), 'T_mid': f64(packed.T_mid),
+        'a_lo': f64(packed.a_lo), 'a_hi': f64(packed.a_hi),
+        'at_last': f64(last['at_last']), 'pd_last': f64(last['pd_last']),
+        'nut_val': f64(nut_val),
+        'nut_ptr': i32(nut_ptr), 'nut_row': i32(nut_row),
     }
+
+
+def kernel_tables(packed) -> dict:
+    """The stage-A kernel's tables under their buffer names, in the order
+    of the C struct ``StageATables`` (``csrc/sparse_stage_a.cu``): K5's
+    (``jacobian_big.parts_tables``, ``kp_``), the closure's
+    (:func:`finish_tables`, ``kf_``), then the third-body efficiency
+    slots ``ka_eff_val`` (R, S_eff) that scale ``psi_q`` into the source
+    stack."""
+    from .jacobian_big import parts_tables
+    out = {'kp_' + k: v for k, v in parts_tables(packed).items()}
+    out.update(('kf_' + k, v) for k, v in finish_tables(packed).items())
+    out['ka_eff_val'] = np.ascontiguousarray(eff_slots(packed)[2].ravel())
+    return out
 
 
 def _csr(mat):
@@ -411,15 +403,21 @@ class SparseJacobian(nn.Module):
     The mechanism tables are registered buffers, so ``.to(device)``
     moves them.  On CUDA tensors every call launches the two kernels of
     :mod:`.kernels` (or raises); on CPU tensors it runs their plain
-    versions.  Moving the module to CUDA raises ``NotImplementedError``
-    for a mechanism the stage-A kernel does not cover
-    (:func:`kernel_unsupported`).
+    versions.  A mechanism :func:`supports` refuses raises
+    ``NotImplementedError``, as ``PallasDDJacobianSparse`` does; so does
+    moving the module to CUDA for table sizes the stage-A kernel does not
+    unroll: those of the reaction body it shares with K5 and K4
+    (``jacobian_big.parts_unsupported``).
     """
 
     def __init__(self, packed, conp: bool = True, fuse_gather: bool = True,
                  device='cuda'):
         super().__init__()
         device = entry_device(device)
+        if not supports(packed):
+            raise NotImplementedError(
+                'sign-flipping PLOG tables are outside SparseJacobian\'s '
+                'coverage (as PallasDDJacobianSparse)')
         self.packed = packed
         self.conp = bool(conp)
         self.fuse_gather = bool(fuse_gather)
@@ -428,7 +426,8 @@ class SparseJacobian(nn.Module):
         self.Sf, self.Sp, self.S_eff = ct['Sf'], ct['Sp'], ct['S_eff']
         self.n_src, self.Rmax = ct['n_src'], ct['Rmax']
         self.n_post = 4 * self.N + 2 * self.J + 3
-        self.unsupported = kernel_unsupported(packed)
+        from .jacobian_big import parts_unsupported
+        self.unsupported = parts_unsupported(packed)
         self.register_buffer('gidx', torch.as_tensor(ct['gidx']))
         self.register_buffer('nuc', torch.as_tensor(ct['nuc']))
         self.register_buffer('inv_mw', torch.as_tensor(
@@ -441,8 +440,8 @@ class SparseJacobian(nn.Module):
             for name, arr in zip(('kx_ptr', 'kx_src', 'kx_coef'),
                                  column_csr(ct['nuc'], rows)):
                 self.register_buffer(name, torch.as_tensor(arr))
-        for name, arr in stage_a_tables(packed, ct).items():
-            self.register_buffer('ka_' + name, torch.as_tensor(arr))
+        for name, arr in kernel_tables(packed).items():
+            self.register_buffer(name, torch.as_tensor(arr))
         self.to(device)
 
     @property
@@ -456,11 +455,10 @@ class SparseJacobian(nn.Module):
 
     def check_kernel_coverage(self, device) -> None:
         """Raise ``NotImplementedError`` if ``device`` is a CUDA device
-        and the mechanism holds a category the kernels do not cover."""
+        and the mechanism's tables are larger than the kernels unroll."""
         if torch.device(device).type == 'cuda' and self.unsupported:
             raise NotImplementedError(
-                'the CUDA stage-A kernel does not cover %s yet (ROADMAP.md '
-                'queue 1: K1 category coverage on the card); run this '
+                'the CUDA stage-A kernel does not unroll %s; run this '
                 'mechanism on the CPU' % ', '.join(self.unsupported))
 
     # --- the two stages ------------------------------------------------------

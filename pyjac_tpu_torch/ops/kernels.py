@@ -132,6 +132,8 @@ def load():
                        ctypes.c_longlong)
     lib.pyjac_stage_a_n_tables.argtypes = []
     lib.pyjac_stage_a_n_tables.restype = ci
+    lib.pyjac_stage_a_scratch_rows.argtypes = [vp]
+    lib.pyjac_stage_a_scratch_rows.restype = cll
     lib.pyjac_stage_a.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll,
                                   vp, vp, vp, vp, vp, vp]
     lib.pyjac_stage_a.restype = ci
@@ -193,39 +195,58 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _table_ptrs(mod, prefixes, int_names, dtype, dev):
+    """The table buffers of ``mod`` whose names start with one of
+    ``prefixes``, in registration order (the C struct's), each checked:
+    int32 where its name after the prefix is in ``int_names``, else
+    ``dtype``.  Returns (their count, a ctypes array of their device
+    pointers)."""
+    tabs = [(k, t) for k, t in mod._buffers.items() if k[:3] in prefixes]
+    for k, t in tabs:
+        want = torch.int32 if k[3:] in int_names else dtype
+        _check(type(mod).__name__ + '.' + k, t, t.shape, want, dev)
+    return len(tabs), (ctypes.c_void_p * len(tabs))(
+        *[t.data_ptr() for _, t in tabs])
+
+
+def _kinetics_dims(mod) -> list:
+    """The dims K1 and K4 / K3 share: {N, R, Sf, Sp, Pm, NT, NP, conp,
+    has_frac, has_pm, has_spec} of ``mod``'s mechanism."""
+    p = mod.packed
+    NT, NP = p.cheb_coef.shape[1:]
+    return [mod.N, mod.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
+            p.plog_lnP.shape[1], NT, NP, int(mod.conp), int(p.has_frac_nu),
+            int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
+
+
 def stage_a(mod, y_t, P_t) -> dict:
-    """Launch the stage-A kernel (``csrc/sparse_stage_a.cu``) for the
+    """Launch the stage-A kernel K1 (``csrc/sparse_stage_a.cu``) for the
     tables of ``mod`` (a ``SparseJacobian``) on (N, B) states and a
     (1, B) pressure/density row."""
     from .rates import _LN_PA_RU
-    from .jacobian_sparse import STAGE_A_INT_TABLES
+    from .jacobian_big import PARTS_INT_TABLES
+    from .jacobian_sparse import FINISH_INT_TABLES
     dev, N, B = y_t.device, mod.N, y_t.shape[-1]
     _check('y_t', y_t, (N, B), F64, dev)
     _check('P_t', P_t, (1, B), F64, dev)
     mod.check_kernel_coverage(dev)
-    # the ka_ buffers, in registration order = the C struct's order
-    names = [k for k in mod._buffers if k.startswith('ka_')]
-    tabs = [mod._buffers[k] for k in names]
-    for k, t in zip(names, tabs):
-        want = torch.int32 if k[3:] in STAGE_A_INT_TABLES else F64
-        _check('SparseJacobian.' + k, t, t.shape, want, dev)
+    n_tabs, ptrs = _table_ptrs(mod, ('kp_', 'kf_', 'ka_'),
+                               PARTS_INT_TABLES + FINISH_INT_TABLES, F64, dev)
     lib = load()
-    if lib.pyjac_stage_a_n_tables() != len(tabs):
+    if lib.pyjac_stage_a_n_tables() != n_tabs:
         raise RuntimeError('stage-A table count mismatch: %d in Python, %d '
-                           'in the kernel' % (len(tabs),
+                           'in the kernel' % (n_tabs,
                                               lib.pyjac_stage_a_n_tables()))
-    packed = mod.packed
-    dims = [N, mod.R, mod.Sf, mod.Sp, mod.S_eff, int(mod.conp),
-            int(bool(packed.troe_has_T2.any()))]
+    dims = _kinetics_dims(mod) + [mod.S_eff]
+    cdims = (ctypes.c_int * len(dims))(*dims)
     src = torch.empty((mod.n_src, B), dtype=F64, device=dev)
     col0 = torch.empty((N, B), dtype=F64, device=dev)
     f = torch.empty((N, B), dtype=F64, device=dev)
     post = torch.empty((mod.n_post, B), dtype=F64, device=dev)
-    scratch = torch.empty((7 * N, B), dtype=F64, device=dev)
-    ptrs = (ctypes.c_void_p * len(tabs))(*[t.data_ptr() for t in tabs])
-    cdims = (ctypes.c_int * len(dims))(*dims)
+    scratch = torch.empty((lib.pyjac_stage_a_scratch_rows(cdims), B),
+                          dtype=F64, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pyjac_stage_a(ptrs, len(tabs), cdims, len(dims),
+        err = lib.pyjac_stage_a(ptrs, n_tabs, cdims, len(dims),
                                 _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
                                 _ptr(src), _ptr(col0), _ptr(f), _ptr(post),
                                 _ptr(scratch), _stream(dev))
@@ -414,33 +435,21 @@ def _dense(mod, y_t, P_t, dtype, entry, name, what):
     dev, N, B = y_t.device, mod.N, y_t.shape[-1]
     _check('y_t', y_t, (N, B), dtype, dev)
     _check('P_t', P_t, (1, B), dtype, dev)
-    # the kp_ then kf_ buffers, in registration order = the C struct's
-    names = ([k for k in mod._buffers if k.startswith('kp_')] +
-             [k for k in mod._buffers if k.startswith('kf_')])
-    tabs = [mod._buffers[k] for k in names]
-    owner = type(mod).__name__ + '.'
-    for k, t in zip(names, tabs):
-        want = (torch.int32 if k[3:] in PARTS_INT_TABLES + FUSED_INT_TABLES
-                else dtype)
-        _check(owner + k, t, t.shape, want, dev)
+    n_tabs, ptrs = _table_ptrs(mod, ('kp_', 'kf_'),
+                               PARTS_INT_TABLES + FUSED_INT_TABLES, dtype, dev)
     lib = load()
-    if lib.pyjac_dense_fused_n_tables() != len(tabs):
+    if lib.pyjac_dense_fused_n_tables() != n_tabs:
         raise RuntimeError('%s: table count mismatch: %d in Python, %d in '
-                           'the kernel' % (what, len(tabs),
+                           'the kernel' % (what, n_tabs,
                                            lib.pyjac_dense_fused_n_tables()))
-    p = mod.packed
-    NT, NP = p.cheb_coef.shape[1:]
-    dims = [N, mod.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
-            p.plog_lnP.shape[1], NT, NP, int(mod.conp), int(p.has_frac_nu),
-            int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
+    dims = _kinetics_dims(mod)
     cdims = (ctypes.c_int * len(dims))(*dims)
     Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
     f = torch.empty((N, B), dtype=dtype, device=dev)
     scratch = torch.empty((lib.pyjac_dense_fused_scratch_rows(cdims), B),
                           dtype=dtype, device=dev)
-    ptrs = (ctypes.c_void_p * len(tabs))(*[t.data_ptr() for t in tabs])
     with torch.cuda.device(dev):
-        err = getattr(lib, entry)(ptrs, len(tabs), cdims, len(dims),
+        err = getattr(lib, entry)(ptrs, n_tabs, cdims, len(dims),
                                   _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
                                   _ptr(Jt), _ptr(f), _ptr(scratch),
                                   _stream(dev))

@@ -7,11 +7,11 @@ device and no mesh: sharding the state batch over several cards is
 ROADMAP item 13.  The names are the JAX package's, so each method's
 counterpart is found by name.
 
-The parity-precision kernel is chosen up front, not by catching errors:
-``SparseJacobian`` (K1 + K2) where its stage-A kernel covers every
-category of the mechanism (``jacobian_sparse.kernel_unsupported`` is
-empty), otherwise ``DenseJacobian`` (K4).  Both compute in native
-float64, so there are no hi/lo pairs.
+The parity-precision kernel is chosen as the JAX package chooses it
+(``mesh.py:153-162``): ``SparseJacobian`` (K1 + K2), and
+``DenseJacobian`` (K4) only where building that raises
+``NotImplementedError``.  Both compute in native float64, so there are
+no hi/lo pairs.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..ops.common import as_f64, entry_device
 from ..ops.dydt import dydt as dydt_dispatch
 from ..ops.jacobian import jacobian_and_dydt
 from ..ops.jacobian_dense import DenseJacobian
-from ..ops.jacobian_sparse import SparseJacobian, kernel_unsupported
+from ..ops.jacobian_sparse import SparseJacobian
 
 
 class BatchEvaluator:
@@ -90,13 +90,15 @@ class BatchEvaluator:
 
     def _dd_kernel(self):
         """The parity-precision module for this mechanism, built once:
-        ``SparseJacobian`` where K1 covers every category, else
-        ``DenseJacobian``."""
+        ``SparseJacobian``, or ``DenseJacobian`` where that raises
+        ``NotImplementedError``."""
         if self._module is None:
-            cls = (DenseJacobian if kernel_unsupported(self.packed)
-                   else SparseJacobian)
-            self._module = cls(self.packed, conp=self.conp,
-                               device=self.device)
+            try:
+                self._module = SparseJacobian(self.packed, conp=self.conp,
+                                              device=self.device)
+            except NotImplementedError:
+                self._module = DenseJacobian(self.packed, conp=self.conp,
+                                             device=self.device)
         return self._module
 
     def _checksum(self, y_t, P_t):

@@ -7,10 +7,12 @@ the kernels' plain versions chunk by chunk.  These tests hold its
 a one-device mesh at ``test_parallel.py``'s 1e-12 of scale, its
 ``jacobian_dd`` against the float64 ``jacobian_and_dydt``, and its
 device-resident loop against a direct whole-array checksum; they check
-the kernel route (K1 + K2 where K1 covers the mechanism, else K4) and
-that the port's bench refuses to run without a card.
+the kernel route (K1 + K2; K4 only where ``SparseJacobian`` refuses, as
+the JAX package's ``mesh.py`` chooses) and that the port's bench refuses
+to run without a card.
 """
 
+import dataclasses
 import io
 import json
 import math
@@ -87,12 +89,12 @@ def test_dydt_and_jacobian_match_jax(mechs):
 
 
 @pytest.mark.parametrize('name,route', [('flagship', SparseJacobian),
-                                        ('synth', DenseJacobian)])
+                                        ('synth', SparseJacobian)])
 def test_jacobian_dd_route_and_results(mechs, name, route):
-    """The parity-precision route is chosen up front: K1 + K2
-    (``SparseJacobian``) for the flagship, K4 (``DenseJacobian``) for the
-    all-features synth, whose PLOG / Chebyshev / SRI / fractional-nu rows
-    K1 does not cover; ``jacobian_dd`` over chunks of 16 matches the
+    """The parity-precision route is K1 + K2 (``SparseJacobian``) for the
+    flagship and for the all-features synth (PLOG, Chebyshev, SRI,
+    chemically activated, fractional nu), as in the JAX package, whose
+    sparse pipeline takes both; ``jacobian_dd`` over chunks of 16 matches the
     float64 ``jacobian_and_dydt`` at the parity metric of
     ``test_golden_parity.py`` (J floored@1e-10 < 1e-8; the sparse pipeline
     sums in another order and reads 5.8e-10 here) and f at 1e-10 of scale,
@@ -133,6 +135,25 @@ def test_resident_covers_every_state_once(mechs, name):
     assert (st['states'], st['chunk_b'], st['n_chunks']) == (40, 16, 3)
     assert st['staging_bytes'] == 40 * (p.n_species + 1) * 8
     assert len(st['pass_s']) == 2 and st['compute_s'] == min(st['pass_s'])
+
+
+def test_refused_mechanism_drops_to_dense_as_jax(mechs):
+    """A sign-flipping PLOG table: ``SparseJacobian`` refuses it, so
+    ``_dd_kernel`` builds ``DenseJacobian``, which refuses it too, as the
+    JAX package's ``BatchEvaluator`` drops from ``PallasDDJacobianSparse``
+    to ``PallasDDJacobian``, which raises."""
+    jp, p, _, _ = mechs['synth']
+    sign = np.array(p.plog_sign)
+    sign[0, 0] = -1.0
+    bad = dataclasses.replace(p, plog_sign=sign)
+    with pytest.raises(NotImplementedError, match='SparseJacobian'):
+        SparseJacobian(bad, device='cpu')
+    with pytest.raises(NotImplementedError, match='DenseJacobian'):
+        BatchEvaluator(bad, device='cpu')._dd_kernel()
+    jev = JBatchEvaluator(dataclasses.replace(jp, plog_sign=sign),
+                          make_mesh(1))
+    with pytest.raises(NotImplementedError):
+        jev._dd_kernel(64)
 
 
 def test_default_device_is_the_card(mechs):

@@ -6,6 +6,7 @@ not installed; ``tests/conftest.py`` imports jax, so run it there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -85,14 +86,36 @@ def test_ragged_batch_on_card(card, B):
     assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
 
 
-def test_uncovered_mechanism_refuses_card(card, tmp_path):
-    """PLOG / Chebyshev / SRI / fractional nu are not in the stage-A
-    kernel yet: moving such a module to the card raises."""
+def test_all_features_on_card_matches_cpu(card, tmp_path):
+    """The all-features synth (PLOG, Chebyshev, SRI, chemically activated,
+    species-specific pdep, fractional nu) through ``SparseJacobian`` on
+    the card launches K1 and K2 once and agrees with its CPU run on the
+    synth golden states."""
     path = tmp_path / 'synth.inp'
     path.write_text(synthetic_mechanism(n_species=9, n_reactions=24, seed=7))
-    sj = SparseJacobian(pack(Mechanism.from_files(str(path))),
-                        device='cpu')
-    with pytest.raises(NotImplementedError, match='PLOG'):
+    p = pack(Mechanism.from_files(str(path)))
+    g = np.load(DATA / 'golden_synth_refc.npz')
+    J0, f0 = SparseJacobian(p, device='cpu')(g['y'], g['P'])
+    kernels.reset_launches()
+    J, f = SparseJacobian(p, device=card)(g['y'], g['P'])
+    torch.cuda.synchronize(card)
+    assert (kernels.launches['stage_a'], kernels.launches['stage_b']) == \
+        (1, 1)
+    assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
+    f, f0 = f.cpu().numpy(), f0.numpy()
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+def test_slot_limit_refuses_card(card):
+    """More reactant slots than the kernels unroll (8): moving the module
+    to the card raises."""
+    _, p = flagship()
+    pad = ((0, 0), (0, 9 - p.reac_sp.shape[1]))
+    wide = dataclasses.replace(
+        p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
+        reac_nu=np.pad(np.asarray(p.reac_nu), pad))
+    sj = SparseJacobian(wide, device='cpu')
+    with pytest.raises(NotImplementedError, match='slots'):
         sj.to(card)
 
 

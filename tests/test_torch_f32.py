@@ -16,6 +16,7 @@ K3 itself runs only on the card (``chip_smoke.py``,
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -32,7 +33,8 @@ from pyjac_tpu_torch.core.constants import RU
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import packed_from_arrays
 from pyjac_tpu_torch.ops import kernels
-from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt
+from pyjac_tpu_torch.ops.dydt import dydt
+from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt, reaction_parts
 from pyjac_tpu_torch.ops.jacobian_big import parts_tables
 from pyjac_tpu_torch.ops.jacobian_dense import fused_tables
 from pyjac_tpu_torch.ops.jacobian_f32 import (F32Jacobian, f32_reference,
@@ -48,6 +50,7 @@ MECHS = {
 # (mechanism, conp) cases the JAX kernel is run on, once per module
 CASES = [('flagship', True), ('synth', True), ('synth', False)]
 TOL = 2e-5
+DATA = pathlib.Path(__file__).parent / 'data'
 
 
 def _density(p, y, P):
@@ -143,6 +146,42 @@ def test_matches_port_f64(mechs, case):
     assert share >= 0.995 and err < TOL, (share, err)
     share, err = _f32_err(ft.T.numpy(), f64.numpy())
     assert share >= 0.995 and err < (TOL if conp else 1e-3), (share, err)
+
+
+def test_golden_dydt_loss_is_float32s_own(mechs):
+    """On the 128 golden flagship states (PaSR states, near equilibrium)
+    float32 dy/dt loses most of its digits on both sides: against the
+    reference C, JAX ``PallasJacobian`` (interpret) reads 7.0e-2 of scale
+    and the port's ``f32_reference`` 9.0e-2 (the K3 kernel read 8.9e-2 on
+    an H100).  Both are float32 roundoff of the terms they sum: against
+    float64 on the same float32-rounded states, each differs from it by
+    less than 1e-4 of the summed magnitude of its row's terms,
+    sum_r |nu_rn| |pm_r| (|Rf_r| + |Rr_r|) (JAX 4.6e-5, the port 1.5e-5:
+    the exp of ln Kc and the rates round at ~1e2 float32 ulps), while
+    those terms exceed the rows ~1e6-fold.  So the port's reading is held
+    to at most twice JAX's (``chip_smoke.py`` phase 12 gates K3 the same
+    way)."""
+    jp, p, _, _ = mechs['flagship']
+    g = np.load(DATA / 'golden_flagship_refc.npz')
+    y, P, ref = g['y'], g['P'], g['ref_dydt']
+    _, jf = PallasJacobian(jp, block_b=64, interpret=True)(y, P)
+    jf = np.asarray(jf, np.float64)
+    y_t = torch.as_tensor(y.T.copy(), dtype=torch.float32)
+    P_t = torch.as_tensor(P[None].copy(), dtype=torch.float32)
+    pf = f32_reference(p, y_t, P_t)[1].T.double().numpy()
+    e_jax, e_port = _f32_err(jf, ref)[1], _f32_err(pf, ref)[1]
+    assert 1e-2 < e_jax and e_port <= 2.0 * e_jax, (e_jax, e_port)
+    # float64 on the same float32-rounded states, and the terms' magnitude
+    y64, P64 = y_t.T.double(), P_t[0].double()
+    f64 = dydt(p, 0.0, P64, y64).numpy()
+    rp = reaction_parts(p, P64, y64)
+    q_gross = (rp['pm'].abs() * (rp['Rf'].abs() + rp['Rr'].abs())).numpy()
+    om = q_gross @ np.abs(np.asarray(p.nu_net, np.float64))
+    mw, rho = np.asarray(p.mw), rp['rho'].numpy()
+    gross = (om * mw / rho[:, None])[:, :-1]
+    for f in (jf, pf):
+        assert float((np.abs(f[:, 1:] - f64[:, 1:]) / gross).max()) < 1e-4
+    assert float(np.median(gross / np.abs(f64[:, 1:]))) > 1e5
 
 
 def test_supports_matches_jax(mechs):

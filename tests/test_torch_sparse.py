@@ -12,7 +12,9 @@ themselves run only on the card (``chip_smoke.py`` and
 ``tests/test_torch_cuda.py``).
 """
 
+import dataclasses
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from pyjac_tpu.core.mech import Mechanism as JMechanism
 from pyjac_tpu.core.pack import pack as jpack
+from pyjac_tpu.ops.dydt import dydt as jdydt
 from pyjac_tpu.ops.jacobian import jacobian_and_dydt as jjacobian_and_dydt
 from pyjac_tpu.testers.synthetic import (plausible_mechanism,
                                          random_states,
@@ -28,16 +31,21 @@ from pyjac_tpu.testers.synthetic import (plausible_mechanism,
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
-from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt
+from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt, reaction_parts
+from pyjac_tpu_torch.ops.jacobian_big import parts_tables, parts_unsupported
+from pyjac_tpu_torch.ops.jacobian_dense import dense_reference
 from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
                                                  column_tables,
-                                                 kernel_unsupported,
+                                                 finish_tables,
+                                                 kernel_tables,
                                                  post_rows,
-                                                 stage_a_reference)
+                                                 stage_a_reference, supports)
 
 torch.set_num_threads(1)
 
 DATA = pathlib.Path(__file__).parent / 'data'
+CSRC = pathlib.Path(__file__).resolve().parent.parent / 'pyjac_tpu_torch' / \
+    'csrc'
 
 
 def _both(tmp_path, text, name='m.inp'):
@@ -61,6 +69,17 @@ def synth(tmp_path_factory):
                         synthetic_mechanism(n_species=9, n_reactions=24,
                                             seed=7))
     return jp, p, np.load(DATA / 'golden_synth_refc.npz')
+
+
+@pytest.fixture(scope='module')
+def synth53(tmp_path_factory):
+    """The all-features synth at the flagship's width (53 species, 326
+    reactions packed): PLOG, Chebyshev, SRI, chemically activated,
+    species-specific pdep, fractional nu, third-body efficiencies."""
+    jm, jp, _, p = _both(tmp_path_factory.mktemp('synth53'),
+                         synthetic_mechanism(n_species=53, n_reactions=325,
+                                             seed=7))
+    return jm, jp, p
 
 
 def _floored(a, b, floor):
@@ -115,16 +134,105 @@ def test_tables_match_jax_expanded_pack(flagship):
             assert np.array_equal(ct['col_coef'][a:b], ct['nuc'][j, n, nz])
 
 
-def test_kernel_coverage(flagship, synth):
-    """The flagship is inside the CUDA kernels' coverage; the
-    all-features synth is not, and moving it to CUDA raises."""
-    assert kernel_unsupported(flagship[1]) == []
-    sj = SparseJacobian(synth[1], device='cpu')
-    assert set(sj.unsupported) >= {'PLOG', 'Chebyshev', 'SRI',
-                                   'fractional nu'}
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+def test_kernel_coverage(flagship, synth, synth53):
+    """The CUDA kernels cover the flagship and both all-features synths
+    (9/24 and 53/326: every category the JAX pipeline takes), so moving
+    them to CUDA raises nothing."""
+    p53 = synth53[2]
+    assert p53.n_reactions == 326
+    assert all(bool(x) for x in (
+        p53.has_plog, p53.has_cheb, p53.has_sri, p53.has_chemact,
+        p53.has_specific_pdep_sp, p53.has_frac_nu, p53.has_pres_mod))
+    for p in (flagship[1], synth[1], p53):
+        assert parts_unsupported(p) == []
+        sj = SparseJacobian(p, device='cpu')
+        assert sj.unsupported == []
         sj.check_kernel_coverage('cuda')
-    sj.check_kernel_coverage('cpu')
+        sj.check_kernel_coverage('cpu')
+
+
+def test_slot_limit_still_raises_on_cuda(synth):
+    """More reactant slots than the kernels unroll (``MAX_SLOTS`` = 8):
+    the plain version takes it on the CPU, moving it to CUDA raises."""
+    p = synth[1]
+    pad = ((0, 0), (0, 9 - p.reac_sp.shape[1]))
+    wide = dataclasses.replace(
+        p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
+        reac_nu=np.pad(np.asarray(p.reac_nu), pad))
+    assert parts_unsupported(wide) == ['more than 8 reactant/product slots']
+    sj = SparseJacobian(wide, device='cpu')
+    with pytest.raises(NotImplementedError, match='8 reactant/product slots'):
+        sj.check_kernel_coverage('cuda')
+    y = torch.as_tensor(synth[2]['y'][:4])
+    P = torch.as_tensor(synth[2]['P'][:4])
+    J, f = sj(y, P)
+    J0, f0 = SparseJacobian(p, device='cpu')(y, P)
+    assert torch.equal(J, J0) and torch.equal(f, f0)
+
+
+def test_sign_flipping_plog_refused_as_jax(tmp_path):
+    """A sign-flipping PLOG table (negative A inside a PLOG ladder) is
+    refused as the JAX package's ``supports`` refuses it: on any device,
+    ``SparseJacobian`` raises ``NotImplementedError``, as
+    ``PallasDDJacobianSparse`` does."""
+    from pyjac_tpu.ops.pallas_dd import PallasDDJacobianSparse
+    from pyjac_tpu.ops.pallas_dd import supports as jsupports
+    _, jp, _, p = _both(tmp_path, synthetic_mechanism(
+        n_species=9, n_reactions=24, seed=7))
+    assert supports(p) == jsupports(jp) is True
+    assert p.has_plog
+    sign = np.array(p.plog_sign)
+    sign[0, 0] = -1.0
+    jbad = dataclasses.replace(jp, plog_sign=sign)
+    bad = dataclasses.replace(p, plog_sign=sign)
+    assert supports(bad) == jsupports(jbad) is False
+    with pytest.raises(NotImplementedError, match='PLOG'):
+        SparseJacobian(bad, device='cpu')
+    with pytest.raises(NotImplementedError):
+        PallasDDJacobianSparse(jbad, interpret=True)
+
+
+def _struct_pointers(text, name):
+    """The number of pointers a C struct ``name`` of the kernel sources
+    declares, counting an embedded struct by its own count."""
+    body = re.search(r'struct %s \{(.*?)\};' % name, text, re.S).group(1)
+    n = 0
+    for decl in body.split(';'):
+        decl = decl.strip()
+        if not decl:
+            continue
+        m = re.match(r'(\w+)<\w+> \w+$', decl)
+        n += (_struct_pointers(text, m.group(1)) if m else decl.count('*'))
+    return n
+
+
+def test_kernel_tables_are_k5s_plus_k1s(synth53):
+    """K1's tables are K5's ``parts_tables`` (the same arrays, in
+    ``PartsTables`` order), then the per-state phases' ``finish_tables``
+    (K4's too), then ``eff_val``; the module registers them in that order,
+    and their count is the C struct ``StageATables``' (``N_TABLES``)."""
+    p = synth53[2]
+    want = [('kp_' + k, v) for k, v in parts_tables(p).items()]
+    want += [('kf_' + k, v) for k, v in finish_tables(p).items()]
+    tabs = kernel_tables(p)
+    assert [k for k, _ in want] + ['ka_eff_val'] == list(tabs)
+    for k, v in want:
+        assert np.array_equal(tabs[k], v) and tabs[k].dtype == v.dtype, k
+    assert tabs['ka_eff_val'].shape == (p.n_reactions * 3,)
+    sj = SparseJacobian(p, device='cpu')
+    names = [k for k in sj._buffers if k[:3] in ('kp_', 'kf_', 'ka_')]
+    assert names == list(tabs)
+    for k in names:
+        assert np.array_equal(sj._buffers[k].numpy(), tabs[k]), k
+    text = (CSRC / 'kinetics.cuh').read_text() + \
+        (CSRC / 'sparse_stage_a.cu').read_text()
+    assert _struct_pointers(text, 'PartsTables') == len(parts_tables(p)) == \
+        int(re.search(r'#define N_PARTS_TABLES (\d+)', text).group(1))
+    assert _struct_pointers(text, 'FinishTables') == len(finish_tables(p)) \
+        == int(re.search(r'#define N_FINISH_TABLES (\d+)', text).group(1))
+    assert _struct_pointers(text, 'StageATables') == len(tabs)
+    assert re.search(r'#define N_TABLES \(N_PARTS_TABLES \+ '
+                     r'N_FINISH_TABLES \+ 1\)', text)
 
 
 def test_kernel_launchers_refuse_cpu_tensors(flagship):
@@ -213,6 +321,47 @@ def test_slice_matches_jax_f64(flagship):
     assert _norm_rel(f.numpy(), np.asarray(jf)) < 1e-7
 
 
+def test_slice_synth53_matches_jax_f64(synth53):
+    """The all-features synth at the flagship's width (53/326), 8 of its
+    random states: J floored@1e-10 < 1e-10 and dy/dt < 1e-7 against the
+    JAX package's f64 ``jacobian_and_dydt`` (as
+    :func:`test_slice_matches_jax_f64`)."""
+    jm, jp, p = synth53
+    y, _, P = random_states(jm, 8, seed=3)
+    J, f = SparseJacobian(p, device='cpu')(y, P)
+    jJ, jf = jjacobian_and_dydt(jp, 0.0, jnp.asarray(P), jnp.asarray(y))
+    assert J.shape == (8, 53, 53)
+    assert _floored(J.numpy(), np.asarray(jJ), 1e-10) < 1e-10
+    assert _norm_rel(f.numpy(), np.asarray(jf)) < 1e-7
+
+
+def test_plain_f_rows_match_jax_dydt_to_roundoff(flagship):
+    """On 256 flagship PaSR states the plain versions' dy/dt (stage A's
+    and K4's, one finish) agree with the JAX package's f64 ``dydt`` to
+    roundoff on the summed magnitude of each species row's terms,
+    sum_r |nu_rn| |pm_r| (|Rf_r| + |Rr_r|) W_n / rho (reads 5.7e-15),
+    though per row, on the row's own scale, they differ by up to ~3e-9:
+    those rows cancel up to ~1e7-fold near equilibrium, so any two
+    summation orders of omega = nu^T q differ there."""
+    _, p, _ = flagship
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:256], d['P'][:256]
+    y_t, P_t = torch.as_tensor(y.T.copy()), torch.as_tensor(P[None].copy())
+    fa = stage_a_reference(p, y_t, P_t)['f']
+    fd = dense_reference(p, y_t, P_t)[1]
+    assert torch.equal(fa, fd)
+    fj = np.asarray(jdydt(flagship[0], 0.0, jnp.asarray(P),
+                          jnp.asarray(y))).T
+    rp = reaction_parts(p, torch.as_tensor(P), torch.as_tensor(y))
+    q_gross = (rp['pm'].abs() * (rp['Rf'].abs() + rp['Rr'].abs())).numpy()
+    nu = np.abs(np.asarray(p.nu_net, np.float64))
+    gross = ((q_gross @ nu) * np.asarray(p.mw) /
+             rp['rho'].numpy()[:, None]).T[:-1]
+    diff = np.abs(fa.numpy()[1:] - fj[1:])
+    assert float((diff / gross).max()) < 1e-13
+    assert _row_rel(fa.numpy()[1:], fj[1:]) > 1e-10
+
+
 def test_slice_flagship_golden(flagship):
     """All 128 flagship golden states against pyJac's generated C:
     J (reference column-major layout) floored@1e-10 < 1e-8, dy/dt
@@ -227,8 +376,8 @@ def test_slice_flagship_golden(flagship):
 
 def test_slice_synth_golden(synth):
     """The all-features golden (PLOG, Chebyshev, SRI, chemically
-    activated, fractional nu) through the sparse path — which the JAX
-    sparse path refuses — at ``TestAllFeaturesGolden``'s tolerances."""
+    activated, fractional nu) through the sparse path, at
+    ``TestAllFeaturesGolden``'s tolerances."""
     _, p, g = synth
     n = len(g['T'])
     J, f = SparseJacobian(p, device='cpu')(g['y'], g['P'])
