@@ -56,9 +56,12 @@ exits non-zero at once:
    each kernel alone beside its plain version, its bound and one
    PyTorch library call, and K7 alone at B = 1024 beside K6 there;
 9. K4 and K2x vs plain: K4 against ``dense_reference`` on the flagship
-   at B = 32768 (the integrate cell's shape) and the 9/24 synth at
-   B = 16384, CONP and CONV; K2x against ``stage_b_reference`` on the
-   gathered operand at B = 131072;
+   at B = 32768 (the integrate cell's shape), the 9/24 synth at
+   B = 16384, the flagship at B = 4099 (a ragged last tile) under the
+   planner's tile and under the global placement, the USC-II class at
+   B = 4096 (3 states a tile, ragged) and the 654 class at B = 128 (its
+   rows exceed shared memory: global slices), CONP and CONV; K2x against
+   ``stage_b_reference`` on the gathered operand at B = 131072;
 10. dense golden: both goldens through ``DenseJacobian`` and the
     flagship's through ``SparseJacobian(fuse_gather=False)``;
 11. the integrate path: the flagship PaSR states tiled to B = 32768
@@ -72,8 +75,11 @@ exits non-zero at once:
     timed as phase 5, and K2x alone;
 12. K3 vs plain: ``F32Jacobian`` (K3, float32) against ``f32_reference``
     on the same states, CONP and CONV, at the flagship's f32 cell
-    (``random_states(seed=1, T_range=(1500, 2500))``, B = 262144) and on
-    the 9/24 synth at B = 16384, with the JAX package's f32 metric (finite
+    (``random_states(seed=1, T_range=(1500, 2500))``, B = 262144), on
+    the 9/24 synth at B = 16384, the flagship at B = 4099 (ragged), the
+    USC-II class at B = 4096 (6 states a tile, ragged) and the 654 class
+    at B = 128 (one state a tile) and, under the global placement, at
+    B = 127 (ragged), with the JAX package's f32 metric (finite
     share >= 0.995, max |diff| on the entries finite on both sides
     < 2e-5 of scale, J and f) and phase 9a's gates on each state's own
     scales, which must catch a fault planted in K3's output; K3 against
@@ -176,7 +182,13 @@ TOL_BIG_JT = 1e-12        # ... and J's temperature row, relative to the
 #                           states, so on the floored scale two f64
 #                           summation orders differ by up to 2.2e-8 there
 #                           (K2 on the 53/326 synth at B = 131072: 1.3e-9)
-TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored
+TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored;
+#                           also K4's J species rows against its plain
+#                           version at the USC-II and 654 classes (phase
+#                           9a), whose rows cancel further: K4 reads
+#                           1.33e-9 floored at USC-II CONP on 4096 states,
+#                           the pre-tile kernel the same (same arithmetic)
+BIG_CLASSES = ('usc', '654')
 TOL_INTEGRATE = 1e-9      # integrate jacobian='dd' vs 'xla': endpoints
 #                           floored at 1e-10 of each state's largest entry
 # K3 (float32), the JAX package's f32 metric (tests/test_pallas_jacobian.py:
@@ -214,10 +226,15 @@ SYNTH_CROSS_B = 4096
 # the dense one runs K5 + K7
 BIG_DENSE = dict(sparse_cols=False)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f64 tensor-core
-# rate, for each kernel's bound
+# H100 SXM peaks (NVIDIA H100 SXM data sheet), for each kernel's bound:
+# HBM3 bandwidth; FP64 outside the tensor cores (no kernel here issues
+# DMMA: the 67 TFLOP/s FP64 tensor-core rate does not apply); FP32 (K3)
 HBM_BYTES_S = 3.35e12
-F64_FLOP_S = 67e12        # also the f32 rate outside the tensor cores (K3)
+F64_FLOP_S = 34e12
+F32_FLOP_S = 67e12
+# operations one exp / log / log10 / pow counts for in a bound: a
+# polynomial of degree ~10 after range reduction, in f64 and f32 alike
+TRANSCENDENTAL_OPS = 20
 
 # float64 SASS: D* arithmetic / compares and any F64 or 64H operand form
 F64_SASS_OP = re.compile(r'^(D(ADD|MUL|FMA|SETP|MNMX|SET|RSQ)\b|\S*F64|'
@@ -320,6 +337,13 @@ def f_gross(packed, y_t, param, conp):
     nu = torch.as_tensor(packed.nu_net, dtype=F64, device=y_t.device).abs()
     mw = torch.as_tensor(packed.mw, dtype=F64, device=y_t.device)
     return ((q_gross @ nu) * mw / rp['rho'][:, None]).T[:-1].contiguous()
+
+
+def on_terms(diff, gross):
+    """max |diff| / gross, where a row with no terms (a species no
+    reaction touches: gross 0) must agree exactly (0 / 0 counts 0)."""
+    d = diff.abs()
+    return float(torch.where(d == 0, 0.0, d / gross).max())
 
 
 def case_states(name, packed, B, device):
@@ -625,12 +649,12 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes, n_ops=0.0):
+def bound(n_bytes, n_ops=0.0, flop_s=F64_FLOP_S):
     """(least ms, 'bytes' or 'operations') for moving ``n_bytes`` through
-    HBM once and doing ``n_ops`` f64 (or f32) operations at the card's
-    peaks."""
+    HBM once and doing ``n_ops`` operations at ``flop_s`` (f64 unless
+    said)."""
     tb = n_bytes / HBM_BYTES_S * 1e3
-    to = n_ops / F64_FLOP_S * 1e3
+    to = n_ops / flop_s * 1e3
     return (tb, 'bytes') if tb >= to else (to, 'operations')
 
 
@@ -1091,40 +1115,55 @@ def phase_big_main(mechs, sizes, device, card):
 # ---------------------------------------------------------------------------
 
 
+def dense_plan(mod, dtype, B, placement=None):
+    """K4's / K3's launch plan on this card (``kernels.dense_tile_plan``),
+    with the placement forced where ``placement`` is given."""
+    return kernels.dense_tile_plan(
+        mod, dtype, B, torch.cuda.get_device_properties(
+            mod.device).multi_processor_count, placement=placement)
+
+
+def plan_tag(plan):
+    return '%d states a tile, %s' % (plan['tile'], plan['placement'])
+
+
 def phase_dense_kernels(cases, device, card):
     """Phase 9a: K4 against ``dense_reference`` on the same inputs, CONP
     and CONV: J's column 0 as phase 3 gates col0, columns 1..J's species
     rows floored and their temperature row on the summed magnitude of its
     terms (as phase 6, with the contraction's own terms: K4 contracts the
     operand's roles one by one, the plain version adds them per reaction
-    first), f as phase 3.  The case marked ``main`` gives the
-    row's ``max_abs_err`` (CONP)."""
+    first), f as phase 3.  Each case (name, packed, B, main, placement)
+    runs the planner's tile, or its own placement where one is given;
+    the case marked ``main`` gives the row's ``max_abs_err`` (CONP)."""
     res = {}
-    for name, packed, B, main in cases:
+    for name, packed, B, main, placement in cases:
         y_t, P_t = case_states(name, packed, B, device)
         for conp in (True, False):
             param = P_t if conp else own_density(packed, y_t, P_t)
             dj = DenseJacobian(packed, conp=conp, device=device)
-            got, gf = dj.call_tr(y_t, param)
+            plan = dense_plan(dj, F64, B, placement)
+            got, gf = kernels.dense_fused(dj, y_t, param, plan=plan)
             ref, rf = dense_reference(packed, y_t, param, conp)
             torch.cuda.synchronize()
             errs = {'col0 T': (row_rel(got[0, :1], ref[0, :1]), TOL_NET),
                     'col0 Y': (state_rel(got[0, 1:], ref[0, 1:]), TOL_NET),
                     'f T': (row_rel(gf[:1], rf[:1]), TOL_NET),
                     'f Y': (state_rel(gf[1:], rf[1:]), TOL_NET),
-                    'f Y on terms': (float(
-                        ((gf[1:] - rf[1:]).abs() /
-                         f_gross(packed, y_t, param, conp)).max()),
+                    'f Y on terms': (on_terms(
+                        gf[1:] - rf[1:], f_gross(packed, y_t, param, conp)),
                         TOL_F_GROSS)}
             e = floored_err(got, ref, 1e-10)
-            errs['J Y'] = (float(e[1:, 1:].max()), TOL_BIG_J)
-            print('  K4 %s %s B=%d J T floored@1e-10 %.3e' % (
-                name, 'conp' if conp else 'conv', B, float(e[1:, :1].max())))
+            tag = 'K4 %s %s B=%d (%s)' % (name, 'conp' if conp else 'conv',
+                                          B, plan_tag(plan))
+            errs['J Y'] = (float(e[1:, 1:].max()),
+                           TOL_CROSS if name in BIG_CLASSES else TOL_BIG_J)
+            print('  %s J T floored@1e-10 %.3e' % (tag,
+                                                  float(e[1:, :1].max())))
             del e
             gross = dense_t_gross(packed, y_t, param, conp)
             errs['J T'] = (float(((got[1:, 0] - ref[1:, 0]).abs() /
                                   gross).max()), TOL_BIG_JT)
-            tag = 'K4 %s %s B=%d' % (name, 'conp' if conp else 'conv', B)
             for nm, (err, tol) in errs.items():
                 print('  %s %-11s %.3e (<= %.0e)' % (tag, nm, err, tol))
             for nm, (err, tol) in errs.items():
@@ -1157,6 +1196,35 @@ def dense_t_gross(packed, y_t, param, conp):
     mags = dense_magnitudes(td, roles, post, Sf, Sp, last, q_gross)
     inv_mw = torch.as_tensor(packed.inv_mw, dtype=F64, device=device)
     return t_row_gross(mags[0], inv_mw, post, conp, mags=mags)
+
+
+def dense_ops(mod, B):
+    """The operations K4 / K3 (``mod``: a ``DenseJacobian`` or an
+    ``F32Jacobian``) needs for B states, counted from its tables: per
+    state the thermo (ln T, 50 per species), per reaction 40, 4 per entry
+    of its Kc sum and the exp / log / pow calls its categories make
+    (:data:`TRANSCENDENTAL_OPS` each: kf; Kc's exp when reversible; the
+    low- or high-pressure rate and log10 Pr under falloff; Troe's 4 (5
+    with T2); SRI's 7 (2 exp, 2 pow at 2 each, a log); PLOG's and
+    Chebyshev's 2; 4 a slot with fractional nu), the contractions (8 per
+    nu_net entry: four sums of products), the closure (12 per species),
+    the column operand's products (2 per CSR entry) and `_post_col` (8
+    per J entry)."""
+    fl = mod.kp_flags.cpu().numpy()
+    plog = (mod.kp_plog_pos >= 0).cpu().numpy()
+    cheb = (mod.kp_cheb_pos >= 0).cpu().numpy()
+    p = mod.packed
+    N, R, J = mod.N, mod.R, mod.N - 1
+    calls = (1 + (fl & 1 != 0) + 2 * (fl & (4 | 8) != 0) +
+             (fl & 16 != 0) * (4 + (fl & 64 != 0)) + 7 * (fl & 32 != 0) +
+             2 * plog + 2 * cheb).sum()
+    if p.has_frac_nu:
+        calls += 4 * R * (p.reac_sp.shape[1] + p.prod_sp.shape[1])
+    nnz = int((np.asarray(p.nu_net) != 0).sum())
+    per_state = (TRANSCENDENTAL_OPS * (1 + float(calls)) + 50.0 * N +
+                 40.0 * R + 4.0 * int(mod.kp_nu_ptr[-1]) + 8.0 * nnz +
+                 12.0 * N + 2.0 * mod.kf_col_coef.numel() + 8.0 * J * N)
+    return per_state * B
 
 
 def k2x_vs_plain(sx, a):
@@ -1338,14 +1406,14 @@ def phase_integrate(packed, device, sizes, card):
         lambda: dense_reference(packed, y_t, P_t, True), reps=2)
     Jt, f = dj.call_tr(y_t, P_t)
     tabs = [v for k, v in dj._buffers.items() if k.startswith(('kp_', 'kf_'))]
-    nnz = int((torch.as_tensor(packed.nu_net) != 0).sum())
-    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs),
-                         (2.0 * dj.kf_col_coef.numel() + 8.0 * nnz +
-                          8.0 * dj.J * dj.N) * B)
+    ops = dense_ops(dj, B)
+    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs), ops)
     print('  dense_fused: kernel %.3f ms, plain version %.3f ms, library call '
-          'none, bound %.3f ms (%s) (flagship, B=%d, %s)' % (
+          'none, bound %.3f ms (%s; %.4e operations: %.3f ms at %.0e/s) '
+          '(flagship, B=%d, %s, %s)' % (
               res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
-              res['bound'][0], res['bound'][1], B, card))
+              res['bound'][0], res['bound'][1], ops, ops / F64_FLOP_S * 1e3,
+              F64_FLOP_S, B, plan_tag(dense_plan(dj, F64, B)), card))
     del Jt, f, dj, out
     torch.cuda.empty_cache()
 
@@ -1480,7 +1548,7 @@ def phase_sass_f64(dump):
     print('phase 2b SASS float64 instructions: K3 (float) %s, K4 (double) '
           '%s (waited %.1f s for the dump)' % (
               sorted(k3.values()), sorted(k4.values()), waited))
-    check(len(k3) == 2 and len(k4) == 2,
+    check(len(k3) == 8 and len(k4) == 8,
           'dense_fused_kernel instantiations not found: %s' % sorted(counts))
     check(all(c == 0 for c in k3.values()),
           'K3 holds float64 SASS instructions: %s' % k3)
@@ -1599,7 +1667,7 @@ def phase_f32_kernels(cases, device, card):
           torch.get_float32_matmul_precision() == 'highest',
           'float32 matmuls would run in TF32')
     res = {}
-    for name, packed, B, main in cases:
+    for name, packed, B, main, placement in cases:
         if name == 'flagship':
             y_t, P_t = f32_states(packed, B, device)
         else:
@@ -1607,12 +1675,15 @@ def phase_f32_kernels(cases, device, card):
         for conp in (True, False):
             param = P_t if conp else own_density(
                 packed, y_t.double(), P_t.double()).float()
-            got, gf = F32Jacobian(packed, conp=conp, device=device).call_tr(
-                y_t, param)
+            fj = F32Jacobian(packed, conp=conp, device=device)
+            plan = dense_plan(fj, torch.float32, B, placement)
+            got, gf = kernels.fused_f32(fj, y_t, param, plan=plan)
+            del fj
             ref, rf = f32_reference(packed, y_t, param, conp)
             torch.cuda.synchronize()
             eJ, ef = f32_err(got, ref), f32_err(gf, rf)
-            tag = 'K3 %s %s B=%d' % (name, 'conp' if conp else 'conv', B)
+            tag = 'K3 %s %s B=%d (%s)' % (name, 'conp' if conp else 'conv',
+                                          B, plan_tag(plan))
             gate_f32(tag, {'J': eJ[:2], 'f': ef[:2]})
             gross = f32_gross(packed, y_t, param, conp)
             errs = f32_own_errs(got, gf, ref, rf, gross)
@@ -1629,7 +1700,7 @@ def phase_f32_kernels(cases, device, card):
                 planted_faults(got, gf, ref, rf, gross, tag)
             del got, gf, ref, rf, gross
             torch.cuda.empty_cache()
-        if name == 'flagship':
+        if name == 'flagship' and main:
             # the float64 sparse pipeline on the same (f32-rounded) states
             Bs = min(B, 65536)
             ys, Ps = y_t[:, :Bs].contiguous(), P_t[:, :Bs].contiguous()
@@ -1694,14 +1765,15 @@ def phase_f32_main(packed, device, B, card):
         lambda: f32_reference(packed, y_t, P_t, True), reps=2)
     Jt, f = fj.call_tr(y_t, P_t)
     tabs = [v for k, v in fj._buffers.items() if k.startswith(('kp_', 'kf_'))]
-    nnz = int((torch.as_tensor(packed.nu_net) != 0).sum())
-    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs),
-                         (2.0 * fj.kf_col_coef.numel() + 8.0 * nnz +
-                          8.0 * fj.J * fj.N) * B)
+    ops = dense_ops(fj, B)
+    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs), ops, F32_FLOP_S)
     print('  fused_f32: kernel %.3f ms, plain version %.3f ms, library call '
-          'none, bound %.3f ms (%s) (flagship, B=%d, %s)' % (
+          'none, bound %.3f ms (%s; %.4e operations: %.3f ms at %.0e/s) '
+          '(flagship, B=%d, %s, %s)' % (
               res['ms']['fused_f32'], res['ms']['fused_f32_plain'],
-              res['bound'][0], res['bound'][1], B, card))
+              res['bound'][0], res['bound'][1], ops, ops / F32_FLOP_S * 1e3,
+              F32_FLOP_S, B, plan_tag(dense_plan(fj, torch.float32, B)),
+              card))
     del Jt, f, fj, y_t, P_t
     torch.cuda.empty_cache()
     return res
@@ -1819,18 +1891,32 @@ def main():
     big = phase_big_main({'654': p654, 'usc': p_usc}, sizes, device, card)
     seconds['6-8'] = time.perf_counter() - t0 - sum(seconds.values())
 
-    errs.update(phase_dense_kernels((('flagship', packed, 32768, True),
-                                     ('synth', p_syn, 16384, False)),
-                                    device, card))
+    # K4's cases: its timed shape; the 9/24 synth; a ragged batch under
+    # the planner's tile and under the global placement; USC-II (3
+    # states a tile, ragged); the 654 class (global slices)
+    errs.update(phase_dense_kernels((
+        ('flagship', packed, 32768, True, None),
+        ('synth', p_syn, 16384, False, None),
+        ('flagship', packed, 4099, False, None),
+        ('flagship', packed, 4099, False, 'global'),
+        ('usc', p_usc, 4096, False, None),
+        ('654', p654, 128, False, None)), device, card))
     errs.update(phase_k2x(packed, device, 131072, card))
     phase_dense_golden((('flagship', packed), ('synth', p_syn)), device, card)
     seconds['9-10'] = time.perf_counter() - t0 - sum(seconds.values())
     # phases 12-13 run before 11: after the integrate cell's long traced
     # call, a later torch.profiler session on the card records no kernels
     # (measured), and phase 13 needs one
-    errs.update(phase_f32_kernels((('flagship', packed, 262144, True),
-                                   ('synth', p_syn, 16384, False)),
-                                  device, card))
+    # K3's: its timed shape; the 9/24 synth; a ragged batch; USC-II (6
+    # states a tile, ragged); the 654 class (one state a tile) and, ragged,
+    # under the global placement
+    errs.update(phase_f32_kernels((
+        ('flagship', packed, 262144, True, None),
+        ('synth', p_syn, 16384, False, None),
+        ('flagship', packed, 4099, False, None),
+        ('usc', p_usc, 4096, False, None),
+        ('654', p654, 128, False, None),
+        ('654', p654, 127, False, 'global')), device, card))
     f32 = phase_f32_main(packed, device, 262144, card)
     seconds['12-13'] = time.perf_counter() - t0 - sum(seconds.values())
     integ = phase_integrate(packed, device, {

@@ -24,131 +24,336 @@
 // (22 KB in f64 at the 53-species flagship: 736 MB at B = 32768, >= 0.22
 // ms at 3.35 TB/s; 11 KB in f32: 2.9 GB at B = 262144, >= 0.88 ms)
 // against ~2 flops per nonzero of the column operands (4553 per flagship
-// state) plus a few thousand for the rates and the closure.  The
-// per-state intermediates (role rows, post rows: ~35 KB per flagship
-// state in f64) go through a batch-minor global scratch, which L2 holds
-// only in part, so the scratch traffic is of the output's order.
+// state), the rates' few hundred exp / log calls and the closure.  Tensor
+// cores do not apply: the column operand is ~0.05% dense (4553 nonzeros
+// of N J x (Sf + Sp + 6) R per state).
 //
-// What the design does about it: a block owns 32 consecutive states and
-// runs WARPS warps over them; lane = state, so every load and store of a
-// warp covers 32 consecutive values and every table read is one address
-// for the warp.  The phases split their work over the warps and meet at
-// __syncthreads: (1) the state scalars and the NASA thermo of species
-// n = w, w + WARPS, ...; (2) the reaction parts of reactions r = w, ...
-// (`reaction_parts`, the K5 body of csrc/kinetics.cuh) into the role
-// rows; (3) the stoichiometric contractions of species n = w, ..., each
-// walking its column of nu_net (a CSR over reactions) with the four sums
-// in registers; (4) the closure on warp 0: dy/dt, the temperature column
-// and the post rows (phases 1, 3 and 4 are csrc/kinetics.cuh's
-// state_phase, contract_phase and closure, which K1 runs too); (5)
-// columns j = w, ... (`finish_column`, the K6
-// body), each walking the nonzeros of its operand x nu_net as a CSR over
-// (column, species row) with the row sum in a register, so every J entry
-// is written once.  Nothing is read-modify-written and nothing needs
-// atomics.  Against the plain versions the sums run in another order
-// (the CSR walks instead of dense matmuls; the operand's roles are
-// contracted one by one instead of being added per reaction first), so
-// kernel and plain version agree to roundoff, not bit for bit.
+// What the first design lost: its per-state intermediates.  A block of 32
+// states (lane = state) wrote each phase's rows -- thermo, the (Sf + Sp +
+// 6) R role rows, the post rows: 32 KB a flagship state in f64 -- to a
+// batch-minor global scratch and read them back after __syncthreads.  At
+// 1 MB a block and ~530 MB live across the card, L2 held little of it:
+// the scratch (1.03 GB at K4's shape, more than J) went to HBM and back,
+// and the two phases that move it, the reaction parts and the columns,
+// took 88% of K4 (PERF.md: the phase split of
+// probes/dense_fused_phases.py).  Moving the rows on chip alone did not
+// speed those two phases up: they wait on chains of loads, which a large
+// tile makes worse by leaving L1 28 KB of the SM's 256 KB.
+//
+// What the design does about it: a block of THREADS threads owns a tile
+// of TS consecutive states and keeps all their rows on the SM, in dynamic
+// shared memory (the `shared` placement).  The tile (tile_layout below)
+// holds no row it can do without -- omega, domega and the closure's sums
+// take the state rows' place once phase 2 has read them, and there is no
+// xi_q row without species-specific pdep -- so 8 flagship states fit in
+// f64 (16 in f32); the host's planner (ops/kernels.py `dense_tile_plan`)
+// sets TS by that footprint, rounded down to whole 32 B sectors of J.
+// The tile is batch-minor with stride TS, so the shared phases of
+// csrc/kinetics.cuh run on it unchanged, called with (B, b) = (TS, s): no
+// body is copied.  Each thread keeps one state s and W - 1 others share
+// it: (0) the tile's y and P rows are loaded once; (1) state and thermo
+// over species; (2) reaction_parts over reactions taken grouped by
+// category (rxn_order), so the TS threads of a warp that share a reaction
+// load its tables once and the warp's few reactions take one path, with
+// the 2 + 2 slot counts of every shipped mechanism fixed at compile time,
+// so the slot arrays stay in registers and not in L1 (local memory);
+// (3) the contractions over species, a spare thread group taking the
+// closure's sums meanwhile; (4) the closure split in three -- the sums
+// over species per state, then at once the temperature row's sums per
+// state and each species' rows -- so no warp runs it alone; (5) the
+// columns in blocks of G over (column, species row), each column's rows
+// longest CSR row first (col_order, which also holds each row's CSR
+// range, so one record starts its walk) so a warp's rows walk alike:
+// each species row goes straight to J, its temperature-row term to a
+// staging region over the q / dq_dT / c_u / c_1 rows (phase 3 was their
+// last reader), then the temperature rows, each summed over the rows in
+// order.  J, col0 and f are stored TS states at a time, whole sectors
+// when TS is a multiple of the sector's states (segments that straddle
+// sectors cost 3x: PERF.md).
+// A mechanism whose rows exceed shared memory (the 654-species class in
+// f64, 258 KB a state) takes the `global` placement: the same kernel on
+// a per-block slice of global memory, with persistent blocks (one per
+// SM) looping over the tiles so the live slices (~34 MB) stay in L2.
+// Dead states of the ragged last tile are skipped.  Nothing is
+// read-modify-written and nothing needs atomics; every sum keeps a fixed
+// order per state, so a state's result does not depend on its tile (and
+// is the pre-tile kernel's, bit for bit).  Against the plain versions the
+// sums run in another order (the CSR walks instead of dense matmuls; the
+// operand's roles are contracted one by one instead of being added per
+// reaction first), so kernel and plain version agree to roundoff, not
+// bit for bit.
 
 #include "kinetics.cuh"
 
 #include <cstring>
 
-#define WARPS 4
+#define SMEM_MAX 232448   // dynamic shared memory a block may use, bytes
+#define THREADS 512       // a block's threads
 
 // matches the numpy table order of jacobian_dense.fused_tables (the
-// closure's jacobian_sparse.finish_tables, then the column CSR) after the
-// K5 tables (jacobian_big.parts_tables)
+// closure's jacobian_sparse.finish_tables, the column CSR's entries, the
+// orders of the reactions and of each column's rows with their CSR
+// ranges) after the K5 tables (jacobian_big.parts_tables)
 template <typename S>
 struct DenseTables {
   PartsTables<S> p;
   FinishTables<S> f;
   const S* col_coef;
-  const int *col_ptr, *col_src;
+  const int *col_src, *rxn_order, *col_order;
 };
-#define N_TABLES (N_PARTS_TABLES + N_FINISH_TABLES + 3)
+#define N_TABLES (N_PARTS_TABLES + N_FINISH_TABLES + 4)
 static_assert(sizeof(DenseTables<double>) == N_TABLES * sizeof(void*),
               "DenseTables must be N_TABLES pointers");
 #define N_DIMS 11
+#define N_PLAN 4
 
-// scratch rows: state/thermo rows (5 + 3N), roles ((Sf + Sp + 6) R), post
-// rows (4N + 2J + 3), then h, dcp, omega, domega (N each)
-static long long scratch_rows(int N, int R, int Sf, int Sp) {
-  return (long long)(5 + 3 * N) + (long long)(Sf + Sp + 6) * R +
-         (4 * N + 2 * (N - 1) + 3) + 4 * N;
+// A tile's rows, each TS states wide (row r of state s at r * TS + s):
+// the staged y and P, the state scalars (rho, mw_avg, yN, dlnrho_dT), the
+// state/thermo rows (5 + 3N; after phase 2, omega, domega and the
+// closure's sums sh, dsh), the role array ((Sf + Sp + 6) R, without the
+// xi_q rows where no reaction has species-specific pdep), the post rows
+// (4N + 2J + 3), then h and dcp (N each).  Phase 5 stages the
+// temperature-row terms of G columns (G N rows) over the role array's q,
+// dq_dT, c_u and c_1 rows, or, where 4R < N, in N rows of their own at
+// the end.  ops/kernels.py `dense_tile_rows` counts the same.
+struct TileLayout {
+  int y, scal, st, roles, post, hrow, rows, stage, G;
+};
+
+__host__ __device__ inline TileLayout tile_layout(int N, int R, int Sf,
+                                                  int Sp, int has_spec) {
+  const int J = N - 1, k = Sf + Sp;
+  TileLayout L;
+  L.y = 0;
+  L.scal = N + 1;
+  L.st = L.scal + 4;
+  L.roles = L.st + 5 + 3 * N;
+  L.post = L.roles + (k + 5 + (has_spec ? 1 : 0)) * R;
+  L.hrow = L.post + 4 * N + 2 * J + 3;
+  L.rows = L.hrow + 2 * N;
+  L.G = 4 * R / N < J ? 4 * R / N : J;
+  L.stage = L.roles + k * R;
+  if (L.G < 1) {
+    L.G = 1;
+    L.stage = L.rows;
+    L.rows += N;
+  }
+  return L;
 }
 
-template <typename S, bool HAS_PM>
-__global__ void __launch_bounds__(32 * WARPS)
-dense_fused_kernel(DenseTables<S> t, PartsDims<S> d, int has_spec,
-                   const S* __restrict__ y, const S* __restrict__ Pin,
-                   long long B, S* __restrict__ Jt, S* __restrict__ fout,
-                   S* __restrict__ scratch) {
-  const long long b = (long long)blockIdx.x * 32 + threadIdx.x;
-  const int w = threadIdx.y;
-  const bool live = b < B;
+// One tile of K4 / K3 on a block of THREADS threads: the states [b0, b0
+// + TS) (those below B live) in the rows at `tile`; stops after phase
+// LAST (probes/dense_fused_phases.py cuts it there; the launcher's kernel
+// runs all five).  SL = 2: every reaction has 2 reactant and 2 product
+// slots (else 0: the counts of d).  Thread tid works on state s = tid %
+// TS with the other W - 1 threads of its state (g = tid / TS; threads
+// past W TS sit out).
+template <typename S, bool HAS_PM, int SL, int LAST>
+__device__ __forceinline__ void dense_fused_tile(
+    const DenseTables<S>& t, const PartsDims<S>& d, int has_spec, int TS,
+    const TileLayout& L, long long b0, const S* __restrict__ y,
+    const S* __restrict__ Pin, long long B, S* __restrict__ Jt,
+    S* __restrict__ fout, S* __restrict__ tile) {
   const int N = d.N, R = d.R, J = N - 1, conp = d.conp;
   const int k = d.Sf + d.Sp;
+  const int tid = threadIdx.x;
+  const int live = (int)(B - b0 < TS ? B - b0 : TS);
+  const int W = THREADS / TS, s = tid % TS, g = tid / TS;
+  const bool on = g < W && s < live;
+  const long long ts = TS, bs = b0 + s;
+  S* ty = tile + (size_t)L.y * TS;
+  S* scal = tile + (size_t)L.scal * TS;
+  S* st = tile + (size_t)L.st * TS;
+  S* omega = st;                        // phase 3 on: st's rows are free
+  S* domega = st + (size_t)N * TS;
+  S* sums = st + (size_t)2 * N * TS;
+  S* roles = tile + (size_t)L.roles * TS;
+  S* post = tile + (size_t)L.post * TS;
+  S* hrow = tile + (size_t)L.hrow * TS;
+  S* dcpr = hrow + (size_t)N * TS;
+  auto scalars = [&]() {
+    StateScalars<S> sc;
+    sc.rho = scal[s];
+    sc.mw_avg = scal[TS + s];
+    sc.yN = scal[2 * TS + s];
+    sc.dlnrho_dT = scal[3 * TS + s];
+    return sc;
+  };
+  auto closure_sums_here = [&]() {
+    const ClosureSums<S> c = closure_sums(N, ty, scalars(),
+                                          post + (size_t)3 * N * TS, dcpr, ts,
+                                          (long long)s);
+    sums[s] = c.sh;
+    sums[TS + s] = c.dsh;
+  };
 
-  S* st = scratch;
-  S* roles = st + (size_t)(5 + 3 * N) * B;
-  // post rows (jacobian_sparse.post_rows)
-  S* post = roles + (size_t)(k + 6) * R * B;
-  S* hrow = post + (size_t)(4 * N + 2 * J + 3) * B;
-  S* dcpr = hrow + (size_t)N * B;
-  S* omega = hrow + (size_t)2 * N * B;
-  S* domega = hrow + (size_t)3 * N * B;
+  // --- 0. the tile's y and P rows ------------------------------------------
+  for (int i = tid; i < (N + 1) * TS; i += THREADS) {
+    const int r = i / TS, si = i % TS;
+    if (si < live)
+      ty[(size_t)r * TS + si] =
+          r < N ? y[(size_t)r * B + b0 + si] : Pin[b0 + si];
+  }
+  __syncthreads();
 
   // --- 1. state and NASA-7 thermo (jacobian_big.state_thermo) -------------
-  StateScalars<S> s = {};
-  if (live)
-    s = state_phase(t.p, t.f, N, conp, y, Pin, B, b, w, WARPS, st,
-                    post + (size_t)3 * N * B, hrow, dcpr);
+  if (on) {
+    const StateScalars<S> sc =
+        state_phase(t.p, t.f, N, conp, ty, ty + (size_t)N * TS, ts,
+                    (long long)s, g, W, st, post + (size_t)3 * N * TS, hrow,
+                    dcpr);
+    if (g == 0) {
+      scal[s] = sc.rho;
+      scal[TS + s] = sc.mw_avg;
+      scal[2 * TS + s] = sc.yN;
+      scal[3 * TS + s] = sc.dlnrho_dT;
+    }
+  }
   __syncthreads();
+  if (LAST < 2) return;
 
-  // --- 2. reaction parts into the role rows ---------------------------------
-  if (live)
-    for (int r = w; r < R; r += WARPS)
-      store_roles(reaction_parts<S, HAS_PM>(t.p, d, st, B, b, r, roles),
-                  roles, (size_t)k * R + r, R, B, b);
+  // --- 2. reaction parts into the role rows, in rxn_order -------------------
+  if (on)
+    for (int i = g; i < R; i += W) {
+      const int r = t.rxn_order[i];
+      store_roles(
+          reaction_parts<S, HAS_PM, SL, SL>(t.p, d, st, ts, s, r, roles),
+          roles, (size_t)k * R + r, R, ts, s, has_spec != 0);
+    }
   __syncthreads();
+  if (LAST < 3) return;
 
   // --- 3. stoichiometric contractions nu_net^T [q, dq_dT, c_u, cv] -----------
-  if (live)
-    contract_phase<S, HAS_PM>(t.f, has_spec, N, R, roles + (size_t)k * R * B,
-                              B, b, w, WARPS, omega, domega, post,
-                              post + (size_t)N * B);
+  // (with a thread group to spare, its last one takes the closure's sums)
+  const bool spare = W > N;
+  if (on) {
+    contract_phase<S, HAS_PM>(t.f, has_spec, N, R, roles + (size_t)k * R * TS,
+                              ts, s, g, W, omega, domega, post,
+                              post + (size_t)N * TS);
+    if (spare && g == W - 1) closure_sums_here();
+  }
   __syncthreads();
+  if (LAST < 4) return;
 
   // --- 4. closure: dy/dt, the temperature column, the post rows ---------------
-  if (live && w == 0)
-    closure(t.f, N, y, s, hrow, dcpr, omega, domega, B, b, post, Jt, fout);
+  if (!spare) {
+    if (on && g == 0) closure_sums_here();
+    __syncthreads();
+  }
+  if (on) {
+    const StateScalars<S> sc = scalars();
+    if (g == 0) {
+      const ClosureSums<S> c = {sums[s], sums[TS + s]};
+      closure_temperature(t.f, N, sc, c, hrow, omega, domega, ts,
+                          (long long)s, post, Jt, fout, B, bs);
+    }
+    for (int n = g; n < J; n += W)
+      closure_species(t.f, N, n, sc, omega, domega, ts, (long long)s, post,
+                      Jt, fout, B, bs);
+  }
   __syncthreads();
+  if (LAST < 5) return;
 
-  // --- 5. the columns 1..J ------------------------------------------------------
-  if (live)
-    for (int j = w; j < J; j += WARPS)
-      finish_column(t.col_ptr + (size_t)j * N, t.col_src, t.col_coef,
-                    t.p.inv_mw, roles, post, Jt + (size_t)(j + 1) * N * B, j,
-                    N, conp, B, b);
+  // --- 5. the columns 1..J, G at a time ---------------------------------------
+  S* stage = tile + (size_t)L.stage * TS;
+  for (int j0 = 0; j0 < J; j0 += L.G) {
+    const int gc = J - j0 < L.G ? J - j0 : L.G;
+    if (on) {
+      // entries (column j0 + jj, its i-th row in col_order) for i = g,
+      // g + W, ... of the block
+      int jj = g / N, i = g % N;
+      for (int e = g; e < gc * N; e += W) {
+        const int j = j0 + jj;
+        const int* q = t.col_order + 3 * ((size_t)j * N + i);
+        const int n = q[0];
+        stage[(size_t)(jj * N + n) * TS + s] = column_entry(
+            q[1], q[2], t.col_src, t.col_coef,
+            column_scales(t.p.inv_mw, post, j, N, conp, ts, (long long)s),
+            roles, post, Jt + (size_t)(j + 1) * N * B, n, N, ts,
+            (long long)s, B, bs);
+        for (i += W; i >= N; i -= N) ++jj;
+      }
+    }
+    __syncthreads();
+    if (on)
+      for (int jj = g; jj < gc; jj += W) {
+        const int j = j0 + jj;
+        S tsum = S(0);
+        for (int n = 0; n < N; ++n)
+          tsum += stage[(size_t)(jj * N + n) * TS + s];
+        column_temperature(
+            tsum,
+            column_scales(t.p.inv_mw, post, j, N, conp, ts, (long long)s),
+            post, Jt + (size_t)(j + 1) * N * B, j, N, ts, (long long)s, bs);
+      }
+    __syncthreads();
+  }
+}
+
+// The blocks loop over the tiles; SMEM: a tile's rows in dynamic shared
+// memory, else in the block's slice of `scratch` (tile rows x TS values)
+template <typename S, bool HAS_PM, int SL, bool SMEM, int LAST>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_fused_kernel(DenseTables<S> t, PartsDims<S> d, int has_spec, int TS,
+                   long long n_tiles, const S* __restrict__ y,
+                   const S* __restrict__ Pin, long long B, S* __restrict__ Jt,
+                   S* __restrict__ fout, S* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TileLayout L = tile_layout(d.N, d.R, d.Sf, d.Sp, has_spec);
+  S* tile = SMEM ? reinterpret_cast<S*>(smem)
+                 : scratch + (size_t)blockIdx.x * L.rows * TS;
+  for (long long i = blockIdx.x; i < n_tiles; i += gridDim.x)
+    dense_fused_tile<S, HAS_PM, SL, LAST>(t, d, has_spec, TS, L, i * TS, y,
+                                          Pin, B, Jt, fout, tile);
 }
 
 extern "C" int pyjac_dense_fused_n_tables(void) { return N_TABLES; }
 
-// rows of the (rows, B) scratch pyjac_dense_fused and pyjac_fused_f32
-// need; dims as there
-extern "C" long long pyjac_dense_fused_scratch_rows(const int* dims) {
-  return scratch_rows(dims[0], dims[1], dims[2], dims[3]);
+// rows of a state's tile (dims as pyjac_dense_fused's): the planner in
+// ops/kernels.py must count the same
+extern "C" int pyjac_dense_fused_tile_rows(const int* dims) {
+  return tile_layout(dims[0], dims[1], dims[2], dims[3], dims[10]).rows;
 }
 
-template <typename S>
-static int launch(const void* const* tables, int n_tables, const int* dims,
-                  int n_dims, double ln_pa_ru, const S* y, const S* P,
-                  long long B, S* Jt, S* f, S* scratch, void* stream) {
-  if (n_tables != N_TABLES || n_dims != N_DIMS) return -1;
+template <typename S, bool HAS_PM, int SL, bool SMEM, int LAST>
+static int launch_kernel(const DenseTables<S>& t, const PartsDims<S>& d,
+                         int has_spec, int TS, long long n_tiles,
+                         unsigned grid, size_t smem, const S* y, const S* P,
+                         long long B, S* Jt, S* f, S* scratch,
+                         cudaStream_t stream) {
+  auto k = dense_fused_kernel<S, HAS_PM, SL, SMEM, LAST>;
+  if (smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k<<<grid, THREADS, smem, stream>>>(t, d, has_spec, TS, n_tiles, y, P, B,
+                                     Jt, f, scratch);
+  return (int)cudaGetLastError();
+}
+
+#define DENSE_FUSED_PARAMS(S)                                              \
+  const void *const *tables, int n_tables, const int *dims, int n_dims,    \
+      double ln_pa_ru, const S *y, const S *P, long long B, S *Jt, S *f,   \
+      S *scratch, const long long *plan, int n_plan, void *stream
+#define DENSE_FUSED_ARGS                                                    \
+  tables, n_tables, dims, n_dims, ln_pa_ru, y, P, B, Jt, f, scratch, plan, \
+      n_plan, stream
+
+template <typename S, int LAST>
+static int launch(DENSE_FUSED_PARAMS(S)) {
+  if (n_tables != N_TABLES || n_dims != N_DIMS || n_plan != N_PLAN) return -1;
   if (dims[0] < 2 || dims[2] > MAX_SLOTS || dims[3] > MAX_SLOTS ||
       dims[5] > MAX_CHEB || dims[6] > MAX_CHEB || B < 1)
     return -1;
+  const TileLayout L =
+      tile_layout(dims[0], dims[1], dims[2], dims[3], dims[10]);
+  const long long TS = plan[0], shared = plan[1], grid = plan[2];
+  if (plan[3] != L.rows || TS < 1 || TS > THREADS || grid < 1) return -1;
+  const long long n_tiles = (B + TS - 1) / TS;
+  const size_t smem = shared ? (size_t)L.rows * TS * sizeof(S) : 0;
+  if (smem > SMEM_MAX || grid > n_tiles) return -1;
+  if (grid > 2147483647LL) return -1;
   DenseTables<S> t;
   std::memcpy(&t, tables, sizeof(t));
   PartsDims<S> d;
@@ -156,32 +361,37 @@ static int launch(const void* const* tables, int n_tables, const int* dims,
   d.Pm = dims[4]; d.NT = dims[5]; d.NP = dims[6]; d.conp = dims[7];
   d.has_frac = dims[8]; d.row0 = 0; d.rows = dims[1];
   d.ln_pa_ru = (S)ln_pa_ru;
-  const long long blocks = (B + 31) / 32;
-  if (blocks > 2147483647LL) return -1;
-  dim3 block(32, WARPS);
+  cudaStream_t s = (cudaStream_t)stream;
+#define DF_LAUNCH(PM, SL, SM)                                                 \
+  launch_kernel<S, PM, SL, SM, LAST>(t, d, dims[10], (int)TS, n_tiles,        \
+                                     (unsigned)grid, smem, y, P, B, Jt, f,    \
+                                     scratch, s)
+#define DF_SLOTS(PM, SM)                                   \
+  (dims[2] == 2 && dims[3] == 2 ? DF_LAUNCH(PM, 2, SM) \
+                                : DF_LAUNCH(PM, 0, SM))
   if (dims[9])
-    dense_fused_kernel<S, true><<<(unsigned)blocks, block, 0,
-                                  (cudaStream_t)stream>>>(
-        t, d, dims[10], y, P, B, Jt, f, scratch);
-  else
-    dense_fused_kernel<S, false><<<(unsigned)blocks, block, 0,
-                                   (cudaStream_t)stream>>>(
-        t, d, dims[10], y, P, B, Jt, f, scratch);
-  return (int)cudaGetLastError();
+    return shared ? DF_SLOTS(true, true) : DF_SLOTS(true, false);
+  return shared ? DF_SLOTS(false, true) : DF_SLOTS(false, false);
+#undef DF_SLOTS
+#undef DF_LAUNCH
 }
 
 // K4.  tables: N_TABLES device pointers in DenseTables order; dims: N_DIMS
 // ints {N, R, Sf, Sp, Pm, NT, NP, conp, has_frac, has_pm, has_spec}; y
-// (N, B), P (1, B); writes Jt (N, N, B) and f (N, B) through scratch
-// (pyjac_dense_fused_scratch_rows(dims), B).  Returns the launch's
-// cudaError_t (0 on success), or -1 on a table / dimension mismatch.
+// (N, B), P (1, B); writes Jt (N, N, B) and f (N, B).  plan: N_PLAN
+// {states per tile TS, shared (1) or global (0) placement, blocks, tile
+// rows per state (pyjac_dense_fused_tile_rows)}: `blocks` blocks loop over
+// the tiles, each tile's rows in the block's dynamic shared memory
+// (shared) or in its slice of scratch (global: blocks x rows x TS values;
+// unused under shared).  Returns the launch's cudaError_t (0 on success),
+// or -1 on a table / dimension / plan mismatch.
 extern "C" int pyjac_dense_fused(const void* const* tables, int n_tables,
                                  const int* dims, int n_dims, double ln_pa_ru,
                                  const double* y, const double* P,
                                  long long B, double* Jt, double* f,
-                                 double* scratch, void* stream) {
-  return launch<double>(tables, n_tables, dims, n_dims, ln_pa_ru, y, P, B,
-                        Jt, f, scratch, stream);
+                                 double* scratch, const long long* plan,
+                                 int n_plan, void* stream) {
+  return launch<double, 5>(DENSE_FUSED_ARGS);
 }
 
 // K3: pyjac_dense_fused in float32 (float tables, states, outputs and
@@ -190,7 +400,7 @@ extern "C" int pyjac_fused_f32(const void* const* tables, int n_tables,
                                const int* dims, int n_dims, double ln_pa_ru,
                                const float* y, const float* P, long long B,
                                float* Jt, float* f, float* scratch,
+                               const long long* plan, int n_plan,
                                void* stream) {
-  return launch<float>(tables, n_tables, dims, n_dims, ln_pa_ru, y, P, B, Jt,
-                       f, scratch, stream);
+  return launch<float, 5>(DENSE_FUSED_ARGS);
 }

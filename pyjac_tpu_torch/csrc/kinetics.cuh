@@ -8,11 +8,14 @@
 //   (csrc/sparse_stage_a.cu) run on every reaction of a state;
 // * state_phase, contract_phase, closure: the per-state phases of K1, K4
 //   and K3 around their reaction parts (thermo; nu_net^T contractions;
-//   dy/dt, the temperature column and the column-finishing rows);
-// * finish_column: one Jacobian column from a CSR contraction of its
-//   operand rows and the column-finishing `post` rows (`_post_col`), the
-//   body of K4's and K3's column loop (the column kernels K6/K2x and K7
-//   run its tiled counterpart, csrc/columns.cuh).
+//   dy/dt, the temperature column and the column-finishing rows), the
+//   closure in three parts that K4 / K3 spread over a block;
+// * column_entry, column_temperature: one Jacobian column's species rows
+//   from a CSR contraction of its operand rows and the column-finishing
+//   `post` rows (`_post_col`), and its temperature row, which K4's and
+//   K3's column phase spread over a block (finish_column runs a column on
+//   one thread; the column kernels K6/K2x and K7 run a tiled counterpart,
+//   csrc/columns.cuh).
 //
 // Every line follows the operation order of the plain PyTorch versions
 // (ops/jacobian.reaction_parts_at, ops/thermo.py,
@@ -158,12 +161,15 @@ __device__ __forceinline__ void species_thermo(const S* a, S RW, S T, S logT,
 }
 
 // concentration products of one side: powers, their product, and the
-// slot derivatives d(prod)/dC_s (`_product_and_slot_derivs`)
-template <typename S>
+// slot derivatives d(prod)/dC_s (`_product_and_slot_derivs`); NS > 0
+// fixes the side's slot count at compile time (then Sn == NS), so the
+// loops unroll and pw / dp stay in registers
+template <typename S, int NS = 0>
 __device__ __forceinline__ S slot_products(const S* __restrict__ conc,
                                            long long B, long long b, int Sn,
                                            const int* sp, const S* nu,
                                            int has_frac, S* pw, S* dp) {
+  if (NS) Sn = NS;
   S total = S(1);
   for (int s = 0; s < Sn; ++s) {
     const S c = AT(conc, sp[s]);
@@ -193,16 +199,19 @@ struct ReactionRoles {
 
 // the six roles into rows k, k + R, ..., k + 5R of out: reaction r's rows
 // of [q; dq_dT; c_u; c_1; psi_q; xi_q] when k is r plus those rows' first
+// (without the xi_q row where with_xi is false: K4 / K3 keep none for a
+// mechanism without species-specific pdep)
 template <typename S>
 __device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
                                             S* __restrict__ out, size_t k,
-                                            int R, long long B, long long b) {
+                                            int R, long long B, long long b,
+                                            bool with_xi = true) {
   AT(out, k) = v.q;
   AT(out, k + R) = v.dq_dT;
   AT(out, k + 2 * (size_t)R) = v.c_u;
   AT(out, k + 3 * (size_t)R) = v.c_1;
   AT(out, k + 4 * (size_t)R) = v.psi_q;
-  AT(out, k + 5 * (size_t)R) = v.xi_q;
+  if (with_xi) AT(out, k + 5 * (size_t)R) = v.xi_q;
 }
 
 // Reaction r of state b (`_compute_reaction_parts` + `_pdep_falloff_vals`)
@@ -212,12 +221,15 @@ __device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
 // writes row r of the Sf + Sp slot roles at slots and returns the six
 // others, which the caller stores (K5, K4 and K3 after the slots, with
 // store_roles; K1 into a scratch, and psi_q and xi_q into its source
-// stack).  HAS_PM = false drops the pressure-modification machinery.
-template <typename S, bool HAS_PM>
+// stack).  HAS_PM = false drops the pressure-modification machinery; SF
+// > 0 (SP > 0) fixes the reactant (product) slot count at compile time,
+// keeping the slot arrays in registers (K4 / K3 for Sf = Sp = 2).
+template <typename S, bool HAS_PM, int SF = 0, int SP = 0>
 __device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const PartsTables<S>& t, const PartsDims<S>& d, const S* __restrict__ st,
     long long B, long long b, int r, S* __restrict__ slots) {
-  const int N = d.N, R = d.R, Sf = d.Sf, Sp = d.Sp, conp = d.conp;
+  const int N = d.N, R = d.R, conp = d.conp;
+  const int Sf = SF ? SF : d.Sf, Sp = SP ? SP : d.Sp;
   const int fl = t.flags[r];
   const S tiny = Num<S>::tiny();
 
@@ -319,10 +331,12 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
   S pwf[MAX_SLOTS], pwp[MAX_SLOTS], dpf[MAX_SLOTS], dpr[MAX_SLOTS];
   const int* rsp = t.reac_sp + (size_t)r * Sf;
   const int* psp = t.prod_sp + (size_t)r * Sp;
-  const S pf = slot_products(conc, B, b, Sf, rsp, t.reac_nu + (size_t)r * Sf,
-                             d.has_frac, pwf, dpf);
-  const S pr = slot_products(conc, B, b, Sp, psp, t.prod_nu + (size_t)r * Sp,
-                             d.has_frac, pwp, dpr);
+  const S pf = slot_products<S, SF>(conc, B, b, Sf, rsp,
+                                    t.reac_nu + (size_t)r * Sf, d.has_frac,
+                                    pwf, dpf);
+  const S pr = slot_products<S, SP>(conc, B, b, Sp, psp,
+                                    t.prod_nu + (size_t)r * Sp, d.has_frac,
+                                    pwp, dpr);
   const S Rf = kf * pf;
   const S Rr = kr * pr;
   const S ordf = t.ordf[r], ordr = t.ordr[r];
@@ -566,29 +580,62 @@ __device__ __forceinline__ void contract_phase(
   }
 }
 
-// 4. the closure on one warp: dy/dt f (N, B), the temperature column col0
-// (N, B) and the post rows eWn, fkJ, mr, ish, mw_avg, fT
-// (jacobian_sparse.post_rows; phase 1 wrote cp, phase 3 v_u and v_c)
+// 4. the closure (`_finish_dd`): dy/dt f (N, B), the temperature column
+// col0 (N, B) and the post rows eWn, fkJ, mr, ish, mw_avg, fT
+// (jacobian_sparse.post_rows; phase 1 wrote cp, phase 3 v_u and v_c), in
+// three parts that K4 / K3 spread over a block: (a) closure_sums, the two
+// sums over the species, one state per thread; (b) closure_species, one
+// species' rows of col0 and f and fkJ, mr; (c) closure_temperature, the
+// temperature row's sums and eWn, one state per thread.  closure() runs
+// the three on one thread (K1's warp 0).  col0 and fout are written at
+// row stride oB, state ob; everything else at (B, b).
 template <typename S>
-__device__ __forceinline__ void closure(
-    const FinishTables<S>& f, int N, const S* __restrict__ y,
-    const StateScalars<S>& s, const S* __restrict__ hrow,
-    const S* __restrict__ dcpr, const S* __restrict__ omega,
-    const S* __restrict__ domega, long long B, long long b,
-    S* __restrict__ post, S* __restrict__ col0, S* __restrict__ fout) {
+struct ClosureSums {
+  S sh, dsh;
+};
+
+template <typename S>
+__device__ __forceinline__ ClosureSums<S> closure_sums(
+    int N, const S* __restrict__ y, const StateScalars<S>& s,
+    const S* __restrict__ cpr, const S* __restrict__ dcpr, long long B,
+    long long b) {
   const int J = N - 1;
-  S* eWn = post + (size_t)2 * N * B;
-  const S* cpr = post + (size_t)3 * N * B;
-  S* fkJ = post + (size_t)4 * N * B;
-  S* mr = post + (size_t)(4 * N + J) * B;
   S sh = S(0), dsh = S(0);
   for (int n = 0; n < N; ++n) {
     const S Yn = n < J ? AT(y, 1 + n) : s.yN;
     sh += AT(cpr, n) * Yn;
     dsh += AT(dcpr, n) * Yn;
   }
+  return {sh, dsh};
+}
+
+template <typename S>
+__device__ __forceinline__ void closure_species(
+    const FinishTables<S>& f, int N, int n, const StateScalars<S>& s,
+    const S* __restrict__ omega, const S* __restrict__ domega, long long B,
+    long long b, S* __restrict__ post, S* __restrict__ col0,
+    S* __restrict__ fout, long long oB, long long ob) {
+  const int J = N - 1;
   const S rho_inv = S(1) / s.rho;
-  const S denomT = s.rho * sh;
+  const S fk = AT(omega, n) * f.mw[n] * rho_inv;
+  col0[(size_t)(1 + n) * oB + ob] =
+      f.mw[n] * rho_inv * AT(domega, n) - fk * s.dlnrho_dT;
+  fout[(size_t)(1 + n) * oB + ob] = fk;
+  AT(post, 4 * N + n) = fk;                               // fkJ
+  AT(post, 4 * N + J + n) = f.mw[n] * rho_inv;            // mr
+}
+
+template <typename S>
+__device__ __forceinline__ void closure_temperature(
+    const FinishTables<S>& f, int N, const StateScalars<S>& s,
+    const ClosureSums<S>& c, const S* __restrict__ hrow,
+    const S* __restrict__ omega, const S* __restrict__ domega, long long B,
+    long long b, S* __restrict__ post, S* __restrict__ col0,
+    S* __restrict__ fout, long long oB, long long ob) {
+  const int J = N - 1;
+  S* eWn = post + (size_t)2 * N * B;
+  const S* cpr = post + (size_t)3 * N * B;
+  const S denomT = s.rho * c.sh;
   S fT = S(0), s1 = S(0), s2 = S(0);
   for (int n = 0; n < N; ++n) {
     const S om = AT(omega, n);
@@ -598,54 +645,93 @@ __device__ __forceinline__ void closure(
     s1 += AT(cpr, n) * f.mw[n] * om / denomT;
     s2 += ew * AT(domega, n);
   }
-  AT(col0, 0) = -(s1 + s2) - fT * (s.dlnrho_dT + dsh / sh);
-  AT(fout, 0) = fT;
-  for (int n = 0; n < J; ++n) {
-    const S fk = AT(omega, n) * f.mw[n] * rho_inv;
-    AT(col0, 1 + n) = f.mw[n] * rho_inv * AT(domega, n) - fk * s.dlnrho_dT;
-    AT(fout, 1 + n) = fk;
-    AT(fkJ, n) = fk;
-    AT(mr, n) = f.mw[n] * rho_inv;
-  }
-  AT(post, 4 * N + 2 * J) = S(1) / sh;
+  col0[ob] = -(s1 + s2) - fT * (s.dlnrho_dT + c.dsh / c.sh);
+  fout[ob] = fT;
+  AT(post, 4 * N + 2 * J) = S(1) / c.sh;
   AT(post, 4 * N + 2 * J + 1) = s.mw_avg;
   AT(post, 4 * N + 2 * J + 2) = fT;
 }
 
-// Jacobian column j + 1 of state b into col (N rows of a batch-minor
-// array): row n's contraction sum over the CSR entries
-// [ptr[n], ptr[n + 1]) of coef * operand[src row], the 1/W_j scale, the
-// rank-one terms and the temperature row (`_post_col`), from the
-// column-finishing rows post (jacobian_sparse.post_rows).  ptr is the
-// column's N + 1 entries of the CSR row pointer.
+template <typename S>
+__device__ __forceinline__ void closure(
+    const FinishTables<S>& f, int N, const S* __restrict__ y,
+    const StateScalars<S>& s, const S* __restrict__ hrow,
+    const S* __restrict__ dcpr, const S* __restrict__ omega,
+    const S* __restrict__ domega, long long B, long long b,
+    S* __restrict__ post, S* __restrict__ col0, S* __restrict__ fout) {
+  const ClosureSums<S> c =
+      closure_sums(N, y, s, post + (size_t)3 * N * B, dcpr, B, b);
+  closure_temperature(f, N, s, c, hrow, omega, domega, B, b, post, col0,
+                      fout, B, b);
+  for (int n = 0; n < N - 1; ++n)
+    closure_species(f, N, n, s, omega, domega, B, b, post, col0, fout, B,
+                    b);
+}
+
+// Jacobian column j + 1 of state b (`_post_col`), from the CSR of its
+// assembly operand x nu_net over the operand's rows and the
+// column-finishing rows post (jacobian_sparse.post_rows), in two parts
+// that K4 / K3 spread over a block: column_entry, one species row n (its
+// CSR entries [e0, e1) of coef * operand[src row], the 1/W_j scale, the
+// rank-one terms), which returns the row's term of the temperature row;
+// column_temperature, that row from the terms' sum over n in order.
+// finish_column runs both on one thread, ptr being the column's N + 1
+// entries of the CSR row pointer.  The column's rows are written at row
+// stride oB, state ob; everything else is read at (B, b).
+template <typename S>
+struct ColumnScales {
+  S w, u, r;   // 1/W_j, 1/W_j - 1/W_N, the rank-one coefficient r_j
+};
+
+template <typename S>
+__device__ __forceinline__ ColumnScales<S> column_scales(
+    const S* __restrict__ inv_mw, const S* __restrict__ post, int j, int N,
+    int conp, long long B, long long b) {
+  const S w_j = inv_mw[j];
+  const S u_j = w_j - inv_mw[N - 1];
+  const S mw_avg = AT(post, 4 * N + 2 * (N - 1) + 1);
+  return {w_j, u_j, conp ? -(mw_avg * u_j) : S(0)};
+}
+
+template <typename S>
+__device__ __forceinline__ S column_entry(
+    int e0, int e1, const int* __restrict__ col_src,
+    const S* __restrict__ col_coef, const ColumnScales<S>& c,
+    const S* __restrict__ operand, const S* __restrict__ post,
+    S* __restrict__ col, int n, int N, long long B, long long b,
+    long long oB, long long ob) {
+  const int J = N - 1;
+  S acc = S(0);
+  for (int e = e0; e < e1; ++e)
+    acc += col_coef[e] * AT(operand, col_src[e]);
+  const S dcol = acc * c.w + AT(post, n) * c.u + AT(post, N + n);
+  if (n < J)
+    col[(size_t)(1 + n) * oB + ob] =
+        AT(post, 4 * N + J + n) * dcol - AT(post, 4 * N + n) * c.r;
+  return AT(post, 2 * N + n) * dcol;
+}
+
+template <typename S>
+__device__ __forceinline__ void column_temperature(
+    S tsum, const ColumnScales<S>& c, const S* __restrict__ post,
+    S* __restrict__ col, int j, int N, long long B, long long b, long long ob) {
+  const int J = N - 1;
+  const S ish = AT(post, 4 * N + 2 * J);
+  const S fT = AT(post, 4 * N + 2 * J + 2);
+  col[ob] = -tsum - fT * (c.r + (AT(post, 3 * N + j) -
+                                 AT(post, 3 * N + N - 1)) * ish);
+}
+
 template <typename S>
 __device__ __forceinline__ void finish_column(
     const int* __restrict__ ptr, const int* __restrict__ col_src,
     const S* __restrict__ col_coef, const S* __restrict__ inv_mw,
     const S* __restrict__ operand, const S* __restrict__ post,
     S* __restrict__ col, int j, int N, int conp, long long B, long long b) {
-  const int J = N - 1;
-  const S* v_u = post;
-  const S* v_c = post + (size_t)N * B;
-  const S* eWn = post + (size_t)2 * N * B;
-  const S* cpr = post + (size_t)3 * N * B;
-  const S* fkJ = post + (size_t)4 * N * B;
-  const S* mr = post + (size_t)(4 * N + J) * B;
-  const S ish = AT(post, 4 * N + 2 * J);
-  const S mw_avg = AT(post, 4 * N + 2 * J + 1);
-  const S fT = AT(post, 4 * N + 2 * J + 2);
-
-  const S w_j = inv_mw[j];
-  const S u_j = w_j - inv_mw[N - 1];
-  const S r_j = conp ? -(mw_avg * u_j) : S(0);
+  const ColumnScales<S> c = column_scales(inv_mw, post, j, N, conp, B, b);
   S tsum = S(0);
-  for (int n = 0; n < N; ++n) {
-    S acc = S(0);
-    for (int e = ptr[n]; e < ptr[n + 1]; ++e)
-      acc += col_coef[e] * AT(operand, col_src[e]);
-    const S dcol = acc * w_j + AT(v_u, n) * u_j + AT(v_c, n);
-    tsum += AT(eWn, n) * dcol;
-    if (n < J) AT(col, 1 + n) = AT(mr, n) * dcol - AT(fkJ, n) * r_j;
-  }
-  AT(col, 0) = -tsum - fT * (r_j + (AT(cpr, j) - AT(cpr, N - 1)) * ish);
+  for (int n = 0; n < N; ++n)
+    tsum += column_entry(ptr[n], ptr[n + 1], col_src, col_coef, c, operand,
+                         post, col, n, N, B, b, B, b);
+  column_temperature(tsum, c, post, col, j, N, B, b, b);
 }

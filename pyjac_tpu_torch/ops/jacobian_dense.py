@@ -31,7 +31,7 @@ from .jacobian_sparse import (FINISH_INT_TABLES, column_csr, column_roles,
                               finish_tables, role_tables, supports)
 
 # the int32 tables of fused_tables
-FUSED_INT_TABLES = FINISH_INT_TABLES + ('col_ptr', 'col_src')
+FUSED_INT_TABLES = FINISH_INT_TABLES + ('col_src', 'rxn_order', 'col_order')
 
 
 def operand_csr(packed):
@@ -67,18 +67,44 @@ def operand_csr(packed):
     return ptr, row.astype(np.int32), coef.astype(np.float64)
 
 
+def reaction_order(packed) -> np.ndarray:
+    """The order K4 takes the reactions in: grouped by the branches its
+    reaction body takes (the category flags, PLOG, Chebyshev), ascending
+    within a group, so the few reactions a warp shares take one path."""
+    t = parts_tables(packed)
+    key = (t['flags'].astype(np.int64) | (t['plog_pos'] >= 0) << 8 |
+           (t['cheb_pos'] >= 0) << 9)
+    return np.argsort(key, kind='stable').astype(np.int32)
+
+
+def column_row_order(col_ptr, N: int) -> np.ndarray:
+    """The order K4 takes each column's species rows in, longest CSR row
+    first (stable), so the few rows a warp shares walk alike, with each
+    row's CSR range: (J*N*3,) int32, position i of column j at
+    [3 (j N + i), +3) = (row n, ptr[j N + n], ptr[j N + n + 1]), so one
+    record gives a row and its range."""
+    ptr = np.asarray(col_ptr, np.int64)
+    lens = np.diff(ptr).reshape(-1, N)
+    n = np.argsort(-lens, axis=1, kind='stable')
+    at = (np.arange(lens.shape[0])[:, None] * N + n).ravel()
+    return np.stack([n.ravel(), ptr[at], ptr[at + 1]], 1).astype(
+        np.int32).ravel()
+
+
 def fused_tables(packed) -> dict:
     """The K4 kernel's tables after K5's (``jacobian_big.parts_tables``),
     in the order of the C struct ``DenseTables`` (``csrc/
     dense_fused.cu``): the per-state phases' (``jacobian_sparse.
-    finish_tables``), then the column CSR ``col_*`` of
-    :func:`operand_csr`.  The int32 arrays are those of
-    :data:`FUSED_INT_TABLES`."""
+    finish_tables``), the column CSR's entries (``col_coef``,
+    ``col_src`` of :func:`operand_csr`), :func:`reaction_order`, then
+    :func:`column_row_order` (each row's range of those entries).  The int32
+    arrays are those of :data:`FUSED_INT_TABLES`."""
     col_ptr, col_src, col_coef = operand_csr(packed)
     return {**finish_tables(packed),
             'col_coef': np.ascontiguousarray(col_coef, np.float64),
-            'col_ptr': np.ascontiguousarray(col_ptr, np.int32),
-            'col_src': np.ascontiguousarray(col_src, np.int32)}
+            'col_src': np.ascontiguousarray(col_src, np.int32),
+            'rxn_order': reaction_order(packed),
+            'col_order': column_row_order(col_ptr, packed.n_species)}
 
 
 def dense_reference(packed, y_t, P_t, conp: bool = True):

@@ -152,10 +152,10 @@ def load():
     lib.pyjac_big_cols_dense.restype = ci
     lib.pyjac_dense_fused_n_tables.argtypes = []
     lib.pyjac_dense_fused_n_tables.restype = ci
-    lib.pyjac_dense_fused_scratch_rows.argtypes = [vp]
-    lib.pyjac_dense_fused_scratch_rows.restype = cll
+    lib.pyjac_dense_fused_tile_rows.argtypes = [vp]
+    lib.pyjac_dense_fused_tile_rows.restype = ci
     lib.pyjac_dense_fused.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll, vp, vp,
-                                      vp, vp]
+                                      vp, vp, ci, vp]
     lib.pyjac_dense_fused.restype = ci
     lib.pyjac_fused_f32.argtypes = lib.pyjac_dense_fused.argtypes
     lib.pyjac_fused_f32.restype = ci
@@ -407,28 +407,117 @@ def big_cols_dense(mod, roles, post):
     return out
 
 
-def dense_fused(mod, y_t, P_t):
+def dense_fused(mod, y_t, P_t, plan=None):
     """Launch the K4 kernel (``csrc/dense_fused.cu``) for the tables of
     ``mod`` (a ``DenseJacobian``) on (N, B) states and a (1, B)
     pressure/density row: returns ``Jt`` (N, N, B), [column, row,
-    batch], and dy/dt ``f`` (N, B)."""
+    batch], and dy/dt ``f`` (N, B).  ``plan``: a :func:`dense_tile_plan`
+    in place of the planner's own choice."""
     return _dense(mod, y_t, P_t, F64, 'pyjac_dense_fused', 'dense_fused',
-                  'K4 dense fused kernel')
+                  'K4 dense fused kernel', plan)
 
 
-def fused_f32(mod, y_t, P_t):
+def fused_f32(mod, y_t, P_t, plan=None):
     """Launch the K3 kernel, the float32 instantiation of K4's
     (``csrc/dense_fused.cu``), for the tables of ``mod`` (an
     ``F32Jacobian``) on float32 (N, B) states and a (1, B)
     pressure/density row: returns float32 ``Jt`` (N, N, B), [column, row,
-    batch], and dy/dt ``f`` (N, B)."""
+    batch], and dy/dt ``f`` (N, B).  ``plan`` as :func:`dense_fused`'s."""
     return _dense(mod, y_t, P_t, torch.float32, 'pyjac_fused_f32',
-                  'fused_f32', 'K3 f32 fused kernel')
+                  'fused_f32', 'K3 f32 fused kernel', plan)
 
 
-def _dense(mod, y_t, P_t, dtype, entry, name, what):
+# K4's / K3's block (csrc/dense_fused.cu THREADS) and the dynamic shared
+# memory one block may use on the H100 (227 KB)
+DENSE_THREADS = 512
+SMEM_MAX = 232448
+# bytes the global placement's live slices may take: most of the 50 MB L2,
+# leaving room for the tables and the stores of J passing through
+L2_SLICES = 40e6
+# J's stores are whole 32 B sectors when a tile holds a multiple of this
+SECTOR = 32
+
+
+def dense_tile_rows(N: int, R: int, Sf: int, Sp: int,
+                    has_spec: bool = True) -> int:
+    """Rows of one state's tile in K4 / K3 (``tile_layout`` in
+    ``csrc/dense_fused.cu``, which the launcher checks): y and P (N + 1),
+    the state scalars (4), the state/thermo rows (5 + 3N, later also
+    omega, domega and the closure's sums), the role array ((Sf + Sp + 6)
+    R, less the xi_q rows without species-specific pdep), the post rows
+    (4N + 2J + 3), h and dcp (2N); plus N staging rows where the role
+    array's q..c_1 rows (4R) hold no column of N."""
+    J = N - 1
+    rows = (N + 1) + 4 + (5 + 3 * N) + (Sf + Sp + 5 + int(bool(has_spec))) \
+        * R + (4 * N + 2 * J + 3) + 2 * N
+    return rows + (N if 4 * R < N else 0)
+
+
+def dense_tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
+                    placement=None) -> dict:
+    """K4's / K3's launch plan for ``mod`` (a ``DenseJacobian`` or an
+    ``F32Jacobian``) on B states in ``dtype``, on a card of ``n_sm``
+    SMs.  A block keeps a tile of ``tile`` states' rows
+    (:func:`dense_tile_rows`) on the SM: in dynamic shared memory
+    (``placement`` 'shared', one block a tile) where one state's rows fit
+    in :data:`SMEM_MAX`, the tile then as many states as fit, rounded
+    down to whole 32 B sectors of J where that leaves a sector's states;
+    else in a slice of global scratch per block ('global': ``n_sm``
+    persistent blocks looping over the tiles, at most one sector's states
+    a tile and as many as keep the slices within :data:`L2_SLICES`).
+    ``tile`` / ``placement`` override the choice.  Returns {tile,
+    placement, grid, rows, smem_bytes, scratch_elems}."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    dims = _kinetics_dims(mod)
+    rows = dense_tile_rows(*dims[:4], dims[10])
+    per_state = rows * itemsize
+    group = SECTOR // itemsize
+    fit = SMEM_MAX // per_state
+    if placement is None:
+        placement = 'shared' if fit >= 1 else 'global'
+    if placement not in ('shared', 'global'):
+        raise ValueError('placement must be shared or global, got %r'
+                         % (placement,))
+    if tile is None:
+        if placement == 'shared':
+            tile = fit if fit < group else fit // group * group
+        else:
+            tile = max(1, min(group, int(L2_SLICES // (n_sm * per_state))))
+    tile = int(tile)
+    if not 1 <= tile <= DENSE_THREADS:
+        raise ValueError('a tile holds 1 to %d states, got %d'
+                         % (DENSE_THREADS, tile))
+    n_tiles = -(-int(B) // tile)
+    if placement == 'shared':
+        smem = rows * tile * itemsize
+        if smem > SMEM_MAX:
+            raise ValueError('%d states of %d bytes exceed %d bytes of '
+                             'shared memory' % (tile, per_state, SMEM_MAX))
+        grid, scratch = n_tiles, 0
+    else:
+        smem, grid = 0, min(n_tiles, int(n_sm))
+        scratch = grid * rows * tile
+    return dict(tile=tile, placement=placement, grid=grid, rows=rows,
+                smem_bytes=smem, scratch_elems=scratch)
+
+
+def _dense(mod, y_t, P_t, dtype, entry, name, what, plan=None):
     """K4's kernel in ``dtype`` through the C entry ``entry``; counts
     under ``name``."""
+    lib, args, Jt, f, _scratch = dense_args(mod, y_t, P_t, dtype, what, plan)
+    with torch.cuda.device(y_t.device):
+        err = getattr(lib, entry)(*args)
+    _raise_on(err, what)
+    launches[name] += 1
+    return Jt, f
+
+
+def dense_args(mod, y_t, P_t, dtype, what, plan=None):
+    """The checked arguments of K4's / K3's C entry for ``mod`` on (N, B)
+    states and a (1, B) pressure/density row in ``dtype``, under ``plan``
+    (default :func:`dense_tile_plan`'s for the card): (the library, the
+    argument list, the outputs Jt and f it fills, the scratch it uses:
+    keep it until the launch)."""
     from .rates import _LN_PA_RU
     from .jacobian_big import PARTS_INT_TABLES
     from .jacobian_dense import FUSED_INT_TABLES
@@ -444,15 +533,21 @@ def _dense(mod, y_t, P_t, dtype, entry, name, what):
                                            lib.pyjac_dense_fused_n_tables()))
     dims = _kinetics_dims(mod)
     cdims = (ctypes.c_int * len(dims))(*dims)
+    if plan is None:
+        plan = dense_tile_plan(
+            mod, dtype, B,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    if lib.pyjac_dense_fused_tile_rows(cdims) != plan['rows']:
+        raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
+                           'kernel' % (what, plan['rows'],
+                                       lib.pyjac_dense_fused_tile_rows(cdims)))
+    cplan = (ctypes.c_longlong * 4)(
+        plan['tile'], int(plan['placement'] == 'shared'), plan['grid'],
+        plan['rows'])
     Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
     f = torch.empty((N, B), dtype=dtype, device=dev)
-    scratch = torch.empty((lib.pyjac_dense_fused_scratch_rows(cdims), B),
-                          dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(ptrs, n_tabs, cdims, len(dims),
-                                  _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
-                                  _ptr(Jt), _ptr(f), _ptr(scratch),
-                                  _stream(dev))
-    _raise_on(err, what)
-    launches[name] += 1
-    return Jt, f
+    scratch = torch.empty((max(1, plan['scratch_elems']),), dtype=dtype,
+                          device=dev)
+    args = [ptrs, n_tabs, cdims, len(dims), _LN_PA_RU, _ptr(y_t), _ptr(P_t),
+            B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4, _stream(dev)]
+    return lib, args, Jt, f, scratch

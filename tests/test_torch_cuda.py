@@ -29,6 +29,7 @@ from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian, post_rows,
                                                  stage_a_reference,
                                                  stage_b_reference)
 from pyjac_tpu_torch.testers.synthetic import (flagship, packed_from_text,
+                                               plausible_mechanism,
                                                random_states,
                                                synthetic_mechanism)
 
@@ -328,6 +329,70 @@ def test_dense_fused_matches_plain_on_card(card, name, conp):
     assert (np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max() < 1e-8
 
 
+@pytest.mark.parametrize('placement', ['shared', 'global'])
+@pytest.mark.parametrize('conp', [True, False])
+def test_dense_fused_placements_on_card(card, placement, conp):
+    """K4 with its tiles in shared memory and in global slices, on 1001
+    flagship states (no multiple of a tile: the last is ragged), agrees
+    with ``dense_reference`` (J floored@1e-10 < 1e-9, dy/dt norm-relative
+    per state < 1e-8) and, bit for bit, with the planner's own launch: a
+    state's arithmetic does not depend on its tile."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:1001], d['P'][:1001]
+    if not conp:
+        P = _density(p, y, P)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), device=card)
+    dj = DenseJacobian(p, conp=conp, device=card)
+    plan = kernels.dense_tile_plan(
+        dj, torch.float64, 1001,
+        torch.cuda.get_device_properties(card).multi_processor_count,
+        placement=placement)
+    assert plan['placement'] == placement and 1001 % plan['tile']
+    kernels.reset_launches()
+    Jt, f = kernels.dense_fused(dj, y_t, P_t, plan=plan)
+    J0, f0 = dj.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert kernels.launches['dense_fused'] == 2
+    assert torch.equal(Jt, J0) and torch.equal(f, f0)
+    Jr, fr = dense_reference(p, y_t, P_t, conp)
+    assert _floored(Jt.permute(2, 1, 0).cpu().numpy(),
+                    Jr.permute(2, 1, 0).cpu().numpy(), 1e-10) < 1e-9
+    f, fr = f.T.cpu().numpy(), fr.T.cpu().numpy()
+    assert (np.abs(f - fr).max(-1) / np.abs(fr).max(-1)).max() < 1e-8
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_dense_fused_654_class_on_card(card, dtype):
+    """The 654-species class through K4 (its rows exceed shared memory:
+    the planner's global slices) and K3 (one state a tile in shared
+    memory) agrees with its plain version on 5 states: K4 J
+    floored@1e-10 < 1e-9, K3 the JAX package's f32 metric."""
+    _, p = packed_from_text(plausible_mechanism(654, 2716, seed=5))
+    y, _, P = random_states(p.mech, 5, seed=3)
+    y_t = torch.as_tensor(y.T.copy(), dtype=dtype, device=card)
+    P_t = torch.as_tensor(P[None].copy(), dtype=dtype, device=card)
+    mod = (DenseJacobian if dtype == torch.float64 else F32Jacobian)(
+        p, device=card)
+    plan = kernels.dense_tile_plan(mod, dtype, 5)
+    assert (plan['tile'], plan['placement']) == (
+        (1, 'global') if dtype == torch.float64 else (1, 'shared'))
+    Jt, f = mod.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    if dtype == torch.float64:
+        Jr, fr = dense_reference(p, y_t, P_t, True)
+        assert _floored(Jt.permute(2, 1, 0).cpu().numpy(),
+                        Jr.permute(2, 1, 0).cpu().numpy(), 1e-10) < 1e-9
+        assert float(((f - fr).abs().amax(0) / fr.abs().amax(0)).max()) \
+            < 1e-8
+    else:
+        Jr, fr = f32_reference(p, y_t, P_t, True)
+        for got, ref in ((Jt, Jr), (f, fr)):
+            share, err = _f32_err(got, ref)
+            assert share >= 0.995 and err < 2e-5, (share, err)
+
+
 def test_stage_b_x_matches_plain_on_card(card):
     """``SparseJacobian(fuse_gather=False)`` runs K1, the gather and K2x
     (not K2); K2x agrees with ``stage_b_reference`` on the same stage-A
@@ -445,6 +510,62 @@ def test_fused_f32_matches_plain_on_card(card, name, conp, B):
     assert _f32_own(f[1:], fr[1:], 1.0) < 1e-4
     assert float((f[0] - fr[0]).abs().max() / fr[0].abs().max()) < 1e-4
     assert Jt.shape == (N, N, B)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_dense_fused_three_reactant_slots_on_card(card, dtype):
+    """The flagship padded to 3 reactant slots takes the kernels' general
+    slot loops (2 + 2 slots are unrolled) and agrees with its plain
+    version on 333 states (the PaSR states in f64, the f32 cell's draw in
+    f32): K4 J floored@1e-10 < 1e-9, K3 the JAX package's f32 metric."""
+    mech, p = flagship()
+    pad = ((0, 0), (0, 1))
+    p = dataclasses.replace(p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
+                            reac_nu=np.pad(np.asarray(p.reac_nu), pad))
+    if dtype == torch.float64:
+        d = np.load(DATA / 'flagship_states.npz')
+        y, P = d['y'][:333], d['P'][:333]
+    else:
+        y, _, P = random_states(mech, 333, seed=1, T_range=(1500.0, 2500.0))
+    y_t = torch.as_tensor(y.T.copy(), dtype=dtype, device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), dtype=dtype,
+                          device=card)
+    if dtype == torch.float64:
+        Jt, f = DenseJacobian(p, device=card).call_tr(y_t, P_t)
+        Jr, fr = dense_reference(p, y_t, P_t, True)
+        assert _floored(Jt.permute(2, 1, 0).cpu().numpy(),
+                        Jr.permute(2, 1, 0).cpu().numpy(), 1e-10) < 1e-9
+    else:
+        Jt, f = F32Jacobian(p, device=card).call_tr(y_t, P_t)
+        Jr, fr = f32_reference(p, y_t, P_t, True)
+        for got, ref in ((Jt, Jr), (f, fr)):
+            share, err = _f32_err(got, ref)
+            assert share >= 0.995 and err < 2e-5, (share, err)
+
+
+@pytest.mark.parametrize('placement', ['shared', 'global'])
+def test_fused_f32_placements_on_card(card, placement):
+    """K3 under each placement on 1001 f32-cell states (no multiple of a
+    tile) is bit-equal to the planner's own launch and meets the JAX
+    package's f32 metric against ``f32_reference``."""
+    mech, p = flagship()
+    y, _, P = random_states(mech, 1001, seed=1, T_range=(1500.0, 2500.0))
+    y_t = torch.as_tensor(y.T.copy(), dtype=torch.float32, device=card)
+    P_t = torch.as_tensor(P[None].copy(), dtype=torch.float32, device=card)
+    fj = F32Jacobian(p, device=card)
+    plan = kernels.dense_tile_plan(
+        fj, torch.float32, 1001,
+        torch.cuda.get_device_properties(card).multi_processor_count,
+        placement=placement)
+    assert plan['placement'] == placement and 1001 % plan['tile']
+    Jt, f = kernels.fused_f32(fj, y_t, P_t, plan=plan)
+    J0, f0 = fj.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert torch.equal(Jt, J0) and torch.equal(f, f0)
+    Jr, fr = f32_reference(p, y_t, P_t, True)
+    for got, ref in ((Jt, Jr), (f, fr)):
+        share, err = _f32_err(got, ref)
+        assert share >= 0.995 and err < 2e-5, (share, err)
 
 
 def test_fused_f32_launcher_refuses_cpu_and_f64(card):

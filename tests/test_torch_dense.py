@@ -224,3 +224,100 @@ def test_launcher_refuses_cpu_tensors(tmp_path_factory):
         kernels.dense_fused(dj, torch.zeros((dj.N, 4), dtype=torch.float64),
                             torch.ones((1, 4), dtype=torch.float64))
     assert kernels.launches == before and kernels._lib is None
+
+
+# ---------------------------------------------------------------------------
+# K4's tile planner (kernels.dense_tile_plan): what the card's launch asks
+# for, computed on the host
+# ---------------------------------------------------------------------------
+
+# the classes K4 is held at on the card: (N, R, seed) of the port's
+# plausible_mechanism
+PLAN_MECHS = {'flagship': (53, 325, 42), 'usc': (111, 784, 5),
+              '654': (654, 2716, 5)}
+
+
+def _plan_packed(name):
+    from pyjac_tpu_torch.testers.synthetic import (
+        packed_from_text, plausible_mechanism as port_plausible)
+    if ('plan', name) not in _CACHE:
+        N, R, seed = PLAN_MECHS[name]
+        _CACHE['plan', name] = packed_from_text(port_plausible(N, R,
+                                                               seed=seed))[1]
+    return _CACHE['plan', name]
+
+
+@pytest.mark.parametrize('name, tile, placement', [
+    ('flagship', 8, 'shared'), ('usc', 3, 'shared'), ('654', 1, 'global')])
+def test_tile_plan(name, tile, placement):
+    """K4 keeps a tile of states' rows on the SM: in shared memory where a
+    state's rows fit one block's 227 KB, as many states as fit, rounded
+    down to whole 32 B sectors of J (4 states in f64) where a sector's
+    states fit (the flagship: 8 of 28.6 KB; USC-II: 3 of 67 KB), one
+    block a tile; the 654 class (258 KB a state) in one global slice per
+    SM, sized to fit the L2 together, the 132 blocks looping over the
+    tiles."""
+    dj = DenseJacobian(_plan_packed(name), device='cpu')
+    B = 32768
+    plan = kernels.dense_tile_plan(dj, torch.float64, B)
+    dims = kernels._kinetics_dims(dj)
+    rows = kernels.dense_tile_rows(*dims[:4], dims[10])
+    assert (plan['tile'], plan['placement'], plan['rows']) == (
+        tile, placement, rows)
+    assert plan['smem_bytes'] <= kernels.SMEM_MAX
+    if placement == 'shared':
+        assert plan['smem_bytes'] == rows * tile * 8
+        assert (tile + (4 if tile >= 4 else 1)) * rows * 8 > kernels.SMEM_MAX
+        assert plan['grid'] == -(-B // tile) and plan['scratch_elems'] == 0
+    else:
+        assert rows * 8 > kernels.SMEM_MAX and plan['smem_bytes'] == 0
+        # one slice of tile x rows values per block, all of them within
+        # the L2 budget
+        assert plan['grid'] == 132
+        assert plan['scratch_elems'] == plan['grid'] * tile * rows
+        assert plan['scratch_elems'] * 8 <= kernels.L2_SLICES
+
+
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+def test_tile_rows_hold_the_plain_pieces(tmp_path_factory, name):
+    """A state's tile rows (``dense_tile_rows``; the kernel's
+    ``tile_layout`` checks the count at launch) are the plain version's
+    per-state arrays: y and P, 4 state scalars, the state/thermo rows
+    (which later hold omega, domega and the closure's 2 sums), the role
+    array less its xi_q rows where no reaction has species-specific
+    pdep, the post rows, and h and dcp."""
+    jm, _, p = _mech(tmp_path_factory, name)
+    y, P = _states(jm, p, name, B=4)
+    y_t = torch.as_tensor(y.T.copy())
+    P_t = torch.as_tensor(np.asarray(P)[None].copy())
+    st = state_thermo(p, y_t, P_t, True)
+    roles = parts_reference(p, st, True)
+    post = finish(p, st, roles, True)['post']
+    N, R = p.n_species, p.n_reactions
+    spec = bool(p.has_specific_pdep_sp)
+    assert st['rows'].shape[0] >= 2 * N + 2 and 4 * R >= N
+    want = (N + 1) + 4 + st['rows'].shape[0] + \
+        (roles.shape[0] - (not spec)) * R + post.shape[0] + 2 * N
+    assert kernels.dense_tile_rows(N, R, p.reac_sp.shape[1],
+                                   p.prod_sp.shape[1], spec) == want
+
+
+def test_tile_plan_ragged_and_overrides():
+    """A ragged batch takes one more tile; a tile / placement given
+    overrides the planner's choice (7 states a tile; the global
+    placement: 132 slices of 4 states); a tile that does not fit shared
+    memory, no tile, and an unknown placement raise."""
+    dj = DenseJacobian(_plan_packed('flagship'), device='cpu')
+    plan = kernels.dense_tile_plan(dj, torch.float64, 4099)
+    assert (plan['tile'], plan['grid']) == (8, 513)
+    seven = kernels.dense_tile_plan(dj, torch.float64, 4099, tile=7)
+    assert (seven['grid'], seven['smem_bytes']) == (586, 7 * 8 * plan['rows'])
+    g = kernels.dense_tile_plan(dj, torch.float64, 4099, placement='global')
+    assert (g['tile'], g['placement'], g['grid']) == (4, 'global', 132)
+    assert g['scratch_elems'] == 132 * 4 * g['rows']
+    with pytest.raises(ValueError, match='shared memory'):
+        kernels.dense_tile_plan(dj, torch.float64, 4099, tile=9)
+    with pytest.raises(ValueError, match='a tile holds'):
+        kernels.dense_tile_plan(dj, torch.float64, 4099, tile=0)
+    with pytest.raises(ValueError, match='placement'):
+        kernels.dense_tile_plan(dj, torch.float64, 4099, placement='l2')

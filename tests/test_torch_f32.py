@@ -264,3 +264,28 @@ def test_launcher_refuses_cpu_tensors(mechs):
     with pytest.raises(ValueError, match='CUDA'):
         kernels.fused_f32(m, torch.zeros((m.N, 4)), torch.ones((1, 4)))
     assert kernels.launches == before and kernels._lib is None
+
+
+@pytest.mark.parametrize('name, N, R, seed, tile', [
+    ('flagship', 53, 325, 42, 16), ('usc', 111, 784, 5, 6),
+    ('654', 654, 2716, 5, 1)])
+def test_tile_plan(name, N, R, seed, tile):
+    """K3's tiles (K4's planner at 4 bytes a value) stay in shared memory
+    for all three classes: the flagship's 16 states (two 32 B sectors of
+    J), USC-II's 6, the 654 class's one state of 129 KB; the bytes asked
+    for never exceed a block's 227 KB, and the global placement's slices
+    fit the L2 budget."""
+    from pyjac_tpu_torch.testers.synthetic import (
+        packed_from_text, plausible_mechanism as port_plausible)
+    m = F32Jacobian(packed_from_text(port_plausible(N, R, seed=seed))[1],
+                    device='cpu')
+    B = 262144
+    plan = kernels.dense_tile_plan(m, torch.float32, B)
+    rows = kernels.dense_tile_rows(N, R, 2, 2, False)
+    assert (plan['tile'], plan['placement'], plan['rows']) == (
+        tile, 'shared', rows)
+    assert plan['smem_bytes'] == rows * tile * 4 <= kernels.SMEM_MAX
+    assert plan['grid'] == -(-B // tile) and plan['scratch_elems'] == 0
+    g = kernels.dense_tile_plan(m, torch.float32, B, placement='global')
+    assert g['grid'] == 132 and g['scratch_elems'] == 132 * g['tile'] * rows
+    assert g['scratch_elems'] * 4 <= kernels.L2_SLICES
