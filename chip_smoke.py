@@ -23,6 +23,11 @@ exits non-zero at once:
    states of the all-features synth at the flagship's width (53 species
    / 326 reactions: PLOG, Chebyshev, SRI, chemically activated,
    species-specific pdep, fractional nu);
+3b. K1 against ``stage_a_reference`` at phase 3's tolerances, CONP and
+   CONV, on the flagship at B = 4099 (a ragged last tile) under the
+   planner's tile and under the global placement, the USC-II class at
+   B = 4096 (4 states a tile) and the 654 class at B = 128 (one state a
+   tile) and, under the global placement, at B = 127;
 4. golden: the 128 reference-C golden states of
    ``tests/data/golden_flagship_refc.npz`` and the all-features synth's
    (9/24, ``golden_synth_refc.npz``) through ``SparseJacobian``;
@@ -38,7 +43,8 @@ exits non-zero at once:
    against ``stage_a_reference`` and K2 and K2x on K1's outputs against
    ``stage_b_reference``, all at that B and phase 3's tolerances; K1
    alone beside its plain version and its bound; J against
-   ``DenseJacobian`` (K4) on 4096 of the states;
+   ``DenseJacobian`` (K4) on 4096 of the states; K1 alone at the USC-II
+   class (B = 32768) beside its plain version and its bound;
 6. big kernels vs plain: K5, K6 and K7 against their plain versions on
    the same inputs, CONP and CONV, at the shape of each timed path of
    phase 8 (K5 + K6 at the 654 class, B = 1024, and at the USC-II class,
@@ -354,6 +360,19 @@ def case_states(name, packed, B, device):
     return big_states(packed, B, device)
 
 
+def card_plan(mod, dtype, B, placement=None):
+    """The launch plan of ``mod``'s tile kernel (K1, K4 or K3) on this card
+    (``kernels.tile_plan``), with the placement forced where
+    ``placement`` is given."""
+    return kernels.tile_plan(
+        mod, dtype, B, torch.cuda.get_device_properties(
+            mod.device).multi_processor_count, placement=placement)
+
+
+def plan_tag(plan):
+    return '%d states a tile, %s' % (plan['tile'], plan['placement'])
+
+
 def phase_kernels_vs_plain(cases, device, card):
     """Phase 3: K1 and K2 against their plain versions, same inputs, CONP
     and CONV; the case marked ``main`` gives the rows' ``max_abs_err``
@@ -384,6 +403,28 @@ def phase_kernels_vs_plain(cases, device, card):
     return res
 
 
+def phase_stage_a_tiles(cases, device, card):
+    """Phase 3b: K1 against ``stage_a_reference`` on the same inputs, CONP
+    and CONV, at phase 3's tolerances, beyond the shapes phase 3 holds:
+    each case (name, packed, B, placement) runs the planner's tile, or the
+    placement given (a ragged batch under both placements, the USC-II
+    class and the 654 class)."""
+    for name, packed, B, placement in cases:
+        y_t, P_t = case_states(name, packed, B, device)
+        for conp in (True, False):
+            param = P_t if conp else own_density(packed, y_t, P_t)
+            sj = SparseJacobian(packed, conp=conp, device=device)
+            plan = card_plan(sj, F64, B, placement)
+            got = kernels.stage_a(sj, y_t, param, plan=plan)
+            ref = stage_a_reference(packed, y_t, param, conp)
+            torch.cuda.synchronize()
+            gate_stage_a(sj, y_t, param, got, ref, '%s %s B=%d (%s)' % (
+                name, 'conp' if conp else 'conv', B, plan_tag(plan)))
+            del got, ref, sj
+            torch.cuda.empty_cache()
+    print('phase 3b K1 tiles vs plain: ok (%s)' % card)
+
+
 def gate_stage_a(sj, y_t, param, got, ref, tag):
     """Hold K1's outputs ``got`` against ``stage_a_reference``'s ``ref`` on
     the same states, each row set at its own tolerance."""
@@ -411,8 +452,8 @@ def gate_stage_a(sj, y_t, param, got, ref, tag):
         errs[k + ' T'] = (row_rel(got[k][:1], ref[k][:1]), TOL_NET)
         errs[k + ' Y'] = (state_rel(got[k][1:], ref[k][1:]), TOL_NET)
     gross = f_gross(packed, y_t, param, conp)
-    errs['f Y on terms'] = (float(
-        ((got['f'][1:] - ref['f'][1:]).abs() / gross).max()), TOL_F_GROSS)
+    errs['f Y on terms'] = (on_terms(got['f'][1:] - ref['f'][1:], gross),
+                            TOL_F_GROSS)
     print('  %s f Y per row on its own scale %.3e' % (
         tag, row_rel(got['f'][1:], ref['f'][1:])))
     del gross
@@ -558,6 +599,33 @@ def stage_a_bound(sj, y_t, P_t, out):
     return bound(nbytes(y_t, P_t, *tabs, *out.values()))
 
 
+def stage_a_alone(sj, y_t, P_t, a, what, card):
+    """K1 alone on ``sj``'s states beside its plain version and its bound
+    (``a``: K1's outputs there): {'ms': {stage_a, stage_a_plain},
+    'bound'}."""
+    ms = {'stage_a': best_ms(lambda: sj.stage_a(y_t, P_t)),
+          'stage_a_plain': best_ms(lambda: stage_a_reference(
+              sj.packed, y_t, P_t, sj.conp), reps=2)}
+    b = stage_a_bound(sj, y_t, P_t, a)
+    B = y_t.shape[-1]
+    print('  stage_a (%s): kernel %.3f ms, plain version %.3f ms, library '
+          'call none, bound %.3f ms (%s) (B=%d, %s; %s)' % (
+              what, ms['stage_a'], ms['stage_a_plain'], b[0], b[1], B,
+              plan_tag(card_plan(sj, F64, B)), card))
+    return {'ms': ms, 'bound': b}
+
+
+def phase_stage_a_usc(packed, device, B, card):
+    """Phase 5b (USC-II): K1 alone at the USC-II class beside its plain
+    version and its bound, at the USC-II cell's B."""
+    y_t, P_t = big_states(packed, B, device)
+    sj = SparseJacobian(packed, device=device)
+    a = sj.stage_a(y_t, P_t)
+    stage_a_alone(sj, y_t, P_t, a, 'USC-II %d/%d' % (sj.N, sj.R), card)
+    del sj, y_t, P_t, a
+    torch.cuda.empty_cache()
+
+
 def phase_synth_main(packed, device, B, card):
     """Phase 5b: the all-features synth at the flagship's width through
     ``SparseJacobian.call_tr`` at B, fused (K1 + K2) then unfused (K1, the
@@ -594,14 +662,7 @@ def phase_synth_main(packed, device, B, card):
                  stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, a['src'],
                                    a['post'], True), a)
     torch.cuda.empty_cache()
-    res['ms']['stage_a'] = best_ms(lambda: sj.stage_a(y_t, P_t))
-    res['ms']['stage_a_plain'] = best_ms(
-        lambda: stage_a_reference(packed, y_t, P_t, True), reps=2)
-    res['bound'] = stage_a_bound(sj, y_t, P_t, a)
-    print('  stage_a (synth): kernel %.3f ms, plain version %.3f ms, library '
-          'call none, bound %.3f ms (%s) (B=%d, %s)' % (
-              res['ms']['stage_a'], res['ms']['stage_a_plain'],
-              res['bound'][0], res['bound'][1], B, card))
+    res.update(stage_a_alone(sj, y_t, P_t, a, 'synth', card))
     del a
     # J and dy/dt against K4 on a slice
     Bc = SYNTH_CROSS_B
@@ -1115,18 +1176,6 @@ def phase_big_main(mechs, sizes, device, card):
 # ---------------------------------------------------------------------------
 
 
-def dense_plan(mod, dtype, B, placement=None):
-    """K4's / K3's launch plan on this card (``kernels.dense_tile_plan``),
-    with the placement forced where ``placement`` is given."""
-    return kernels.dense_tile_plan(
-        mod, dtype, B, torch.cuda.get_device_properties(
-            mod.device).multi_processor_count, placement=placement)
-
-
-def plan_tag(plan):
-    return '%d states a tile, %s' % (plan['tile'], plan['placement'])
-
-
 def phase_dense_kernels(cases, device, card):
     """Phase 9a: K4 against ``dense_reference`` on the same inputs, CONP
     and CONV: J's column 0 as phase 3 gates col0, columns 1..J's species
@@ -1142,7 +1191,7 @@ def phase_dense_kernels(cases, device, card):
         for conp in (True, False):
             param = P_t if conp else own_density(packed, y_t, P_t)
             dj = DenseJacobian(packed, conp=conp, device=device)
-            plan = dense_plan(dj, F64, B, placement)
+            plan = card_plan(dj, F64, B, placement)
             got, gf = kernels.dense_fused(dj, y_t, param, plan=plan)
             ref, rf = dense_reference(packed, y_t, param, conp)
             torch.cuda.synchronize()
@@ -1413,7 +1462,7 @@ def phase_integrate(packed, device, sizes, card):
           '(flagship, B=%d, %s, %s)' % (
               res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
               res['bound'][0], res['bound'][1], ops, ops / F64_FLOP_S * 1e3,
-              F64_FLOP_S, B, plan_tag(dense_plan(dj, F64, B)), card))
+              F64_FLOP_S, B, plan_tag(card_plan(dj, F64, B)), card))
     del Jt, f, dj, out
     torch.cuda.empty_cache()
 
@@ -1676,7 +1725,7 @@ def phase_f32_kernels(cases, device, card):
             param = P_t if conp else own_density(
                 packed, y_t.double(), P_t.double()).float()
             fj = F32Jacobian(packed, conp=conp, device=device)
-            plan = dense_plan(fj, torch.float32, B, placement)
+            plan = card_plan(fj, torch.float32, B, placement)
             got, gf = kernels.fused_f32(fj, y_t, param, plan=plan)
             del fj
             ref, rf = f32_reference(packed, y_t, param, conp)
@@ -1772,7 +1821,7 @@ def phase_f32_main(packed, device, B, card):
           '(flagship, B=%d, %s, %s)' % (
               res['ms']['fused_f32'], res['ms']['fused_f32_plain'],
               res['bound'][0], res['bound'][1], ops, ops / F32_FLOP_S * 1e3,
-              F32_FLOP_S, B, plan_tag(dense_plan(fj, torch.float32, B)),
+              F32_FLOP_S, B, plan_tag(card_plan(fj, torch.float32, B)),
               card))
     del Jt, f, fj, y_t, P_t
     torch.cuda.empty_cache()
@@ -1865,22 +1914,31 @@ def main():
     mech, packed = flagship()
     p_syn = packed_from_text(synthetic_mechanism(9, 24, seed=7))[1]
     p_syn53 = packed_from_text(synthetic_mechanism(53, 325, seed=7))[1]
+    p654 = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
+    p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
+    # batch of each phase-8 path; phase 6 checks the kernels at each
+    sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
     errs = phase_kernels_vs_plain((('flagship', packed, 16384, True),
                                    ('synth53', p_syn53, 16384, False)),
                                   device, card)
+    # K1's other cases: a ragged batch under the planner's tile and under
+    # the global placement; USC-II (4 states a tile); the 654 class (one
+    # state a tile) and, ragged, under the global placement
+    phase_stage_a_tiles((('flagship', packed, 4099, None),
+                         ('flagship', packed, 4099, 'global'),
+                         ('usc', p_usc, 4096, None),
+                         ('654', p654, 128, None),
+                         ('654', p654, 127, 'global')), device, card)
     phase_golden((('flagship', packed), ('synth', p_syn)), device, card)
     sj = SparseJacobian(packed, device=device)
     main_res = phase_main(sj, packed, device, 131072, card)
     del sj
     torch.cuda.empty_cache()
     synth = phase_synth_main(p_syn53, device, 131072, card)
+    phase_stage_a_usc(p_usc, device, sizes['usc'], card)
     phase_sass_f64(sass_dump)
     seconds = {'1-5b': time.perf_counter() - t0}
 
-    p654 = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
-    p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
-    # batch of each phase-8 path; phase 6 checks the kernels at each
-    sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
     errs.update(phase_big_kernels((
         ('654', p654, sizes['654'], ('K6',),
          ('big_parts', 'big_cols_sparse')),

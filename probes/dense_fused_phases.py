@@ -14,7 +14,7 @@ K3's (the f32 cell: ``random_states(seed=1, T_range=(1500, 2500))``,
 B = 262144), as ms per call (10 queued, best of 3, CUDA events) in two
 turns beside the launcher, after checking the cut at 5 bit-equal to
 the launcher's J and f; then the launcher under the plans of ``TILES``
-(tiles and placements: ``kernels.dense_tile_plan``), each checked
+(tiles and placements: ``kernels.tile_plan``), each checked
 bit-equal to the planner's choice (a state's arithmetic does not depend
 on its tile).  It prints
 the card's ``nvidia-smi`` line first and last and ptxas's registers and
@@ -127,7 +127,7 @@ def cut_call(fn, last, mod, y_t, P_t, dtype, plan):
 
 def case(name, dll, fn, launcher, mod, y_t, P_t, dtype, card):
     B = y_t.shape[-1]
-    plan = kernels.dense_tile_plan(mod, dtype, B)
+    plan = kernels.tile_plan(mod, dtype, B)
     ref = launcher(mod, y_t, P_t)
     got = cut_call(fn, 5, mod, y_t, P_t, dtype, plan)
     torch.cuda.synchronize()
@@ -154,7 +154,7 @@ def case(name, dll, fn, launcher, mod, y_t, P_t, dtype, card):
                                                for t in times[last]),
             best - prev))
         prev = best
-    plan_fn = kernels.dense_tile_plan
+    plan_fn = kernels.tile_plan
     chosen = plan_fn(mod, dtype, B)
     ref = launcher(mod, y_t, P_t)
     print('  planner: %s' % (chosen,))

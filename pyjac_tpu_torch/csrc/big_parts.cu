@@ -28,7 +28,10 @@
 // that share one state tile run together and find its rows in L2.  Under
 // `split_presmod` the pressure-modified reactions come first; the rows
 // after them run the HAS_PM = false instantiation, which drops that
-// machinery.
+// machinery.  A mechanism with 2 reactant and 2 product slots (every one
+// the port ships) runs the instantiation with those counts fixed at
+// compile time, so the slot arrays stay in registers, not in local memory
+// (which lives in L1); other slot counts run the run-time loops.
 
 #include "kinetics.cuh"
 
@@ -37,7 +40,9 @@
 #define N_TABLES N_PARTS_TABLES
 #define N_DIMS 9
 
-template <bool HAS_PM>
+// SL = 2: every reaction has 2 reactant and 2 product slots (else 0: the
+// counts of d)
+template <bool HAS_PM, int SL>
 __global__ void __launch_bounds__(128)
 big_parts_kernel(PartsTables<double> t, PartsDims<double> d,
                  const double* __restrict__ st,
@@ -45,7 +50,8 @@ big_parts_kernel(PartsTables<double> t, PartsDims<double> d,
   const long long b = (long long)blockIdx.y * blockDim.x + threadIdx.x;
   if (b >= B || blockIdx.x >= (unsigned)d.rows) return;
   const int r = d.row0 + blockIdx.x;
-  store_roles(reaction_parts<double, HAS_PM>(t, d, st, B, b, r, roles),
+  store_roles(reaction_parts<double, HAS_PM, SL, SL>(t, d, st, B, b, r, roles,
+                                                     B, b),
               roles, (size_t)(d.Sf + d.Sp) * d.R + r, d.R, B, b);
 }
 
@@ -76,11 +82,18 @@ extern "C" int pyjac_big_parts(const void* const* tables, int n_tables,
   d.has_frac = dims[8]; d.row0 = row0; d.rows = rows;
   d.ln_pa_ru = ln_pa_ru;
   dim3 grid((unsigned)rows, (unsigned)tiles);
-  if (has_pm)
-    big_parts_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        t, d, st, B, roles);
-  else
-    big_parts_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        t, d, st, B, roles);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool two = d.Sf == 2 && d.Sp == 2;
+  if (has_pm) {
+    if (two) big_parts_kernel<true, 2><<<grid, threads, 0, s>>>(t, d, st, B,
+                                                                 roles);
+    else big_parts_kernel<true, 0><<<grid, threads, 0, s>>>(t, d, st, B,
+                                                             roles);
+  } else {
+    if (two) big_parts_kernel<false, 2><<<grid, threads, 0, s>>>(t, d, st, B,
+                                                                  roles);
+    else big_parts_kernel<false, 0><<<grid, threads, 0, s>>>(t, d, st, B,
+                                                              roles);
+  }
   return (int)cudaGetLastError();
 }

@@ -40,18 +40,19 @@
 // speed those two phases up: they wait on chains of loads, which a large
 // tile makes worse by leaving L1 28 KB of the SM's 256 KB.
 //
-// What the design does about it: a block of THREADS threads owns a tile
+// What the design does about it: a block of 512 threads owns a tile
 // of TS consecutive states and keeps all their rows on the SM, in dynamic
 // shared memory (the `shared` placement).  The tile (tile_layout below)
 // holds no row it can do without -- omega, domega and the closure's sums
 // take the state rows' place once phase 2 has read them, and there is no
 // xi_q row without species-specific pdep -- so 8 flagship states fit in
-// f64 (16 in f32); the host's planner (ops/kernels.py `dense_tile_plan`)
-// sets TS by that footprint, rounded down to whole 32 B sectors of J.
-// The tile is batch-minor with stride TS, so the shared phases of
-// csrc/kinetics.cuh run on it unchanged, called with (B, b) = (TS, s): no
-// body is copied.  Each thread keeps one state s and W - 1 others share
-// it: (0) the tile's y and P rows are loaded once; (1) state and thermo
+// f64 (16 in f32); the host's planner (ops/kernels.py `tile_plan`) sets
+// TS by that footprint, rounded down to whole 32 B sectors of J.  Phases
+// 0-4 are csrc/state_tile.cuh's, which K1 runs too: the tile is
+// batch-minor with stride TS, so the shared phases of csrc/kinetics.cuh
+// run on it unchanged, called with (B, b) = (TS, s): no body is copied.
+// Each thread keeps one state s and W - 1 others share it: (0) the
+// tile's y and P rows are loaded once; (1) state and thermo
 // over species; (2) reaction_parts over reactions taken grouped by
 // category (rxn_order), so the TS threads of a warp that share a reaction
 // load its tables once and the warp's few reactions take one path, with
@@ -83,12 +84,9 @@
 // reaction first), so kernel and plain version agree to roundoff, not
 // bit for bit.
 
-#include "kinetics.cuh"
+#include "state_tile.cuh"
 
 #include <cstring>
-
-#define SMEM_MAX 232448   // dynamic shared memory a block may use, bytes
-#define THREADS 512       // a block's threads
 
 // matches the numpy table order of jacobian_dense.fused_tables (the
 // closure's jacobian_sparse.finish_tables, the column CSR's entries, the
@@ -107,30 +105,15 @@ static_assert(sizeof(DenseTables<double>) == N_TABLES * sizeof(void*),
 #define N_DIMS 11
 #define N_PLAN 4
 
-// A tile's rows, each TS states wide (row r of state s at r * TS + s):
-// the staged y and P, the state scalars (rho, mw_avg, yN, dlnrho_dT), the
-// state/thermo rows (5 + 3N; after phase 2, omega, domega and the
-// closure's sums sh, dsh), the role array ((Sf + Sp + 6) R, without the
-// xi_q rows where no reaction has species-specific pdep), the post rows
-// (4N + 2J + 3), then h and dcp (N each).  Phase 5 stages the
-// temperature-row terms of G columns (G N rows) over the role array's q,
-// dq_dT, c_u and c_1 rows, or, where 4R < N, in N rows of their own at
-// the end.  ops/kernels.py `dense_tile_rows` counts the same.
-struct TileLayout {
-  int y, scal, st, roles, post, hrow, rows, stage, G;
-};
-
+// K4's tile (state_tile_layout's rows, the role array with its Sf + Sp
+// slot roles) and, for phase 5, the temperature-row terms of G columns (G
+// N rows) staged over the role array's q, dq_dT, c_u and c_1 rows, or,
+// where 4R < N, in N rows of their own at the end.  ops/kernels.py
+// `dense_tile_rows` counts the same.
 __host__ __device__ inline TileLayout tile_layout(int N, int R, int Sf,
                                                   int Sp, int has_spec) {
   const int J = N - 1, k = Sf + Sp;
-  TileLayout L;
-  L.y = 0;
-  L.scal = N + 1;
-  L.st = L.scal + 4;
-  L.roles = L.st + 5 + 3 * N;
-  L.post = L.roles + (k + 5 + (has_spec ? 1 : 0)) * R;
-  L.hrow = L.post + 4 * N + 2 * J + 3;
-  L.rows = L.hrow + 2 * N;
+  TileLayout L = state_tile_layout(N, R, k, has_spec);
   L.G = 4 * R / N < J ? 4 * R / N : J;
   L.stage = L.roles + k * R;
   if (L.G < 1) {
@@ -141,118 +124,30 @@ __host__ __device__ inline TileLayout tile_layout(int N, int R, int Sf,
   return L;
 }
 
-// One tile of K4 / K3 on a block of THREADS threads: the states [b0, b0
-// + TS) (those below B live) in the rows at `tile`; stops after phase
-// LAST (probes/dense_fused_phases.py cuts it there; the launcher's kernel
-// runs all five).  SL = 2: every reaction has 2 reactant and 2 product
-// slots (else 0: the counts of d).  Thread tid works on state s = tid %
-// TS with the other W - 1 threads of its state (g = tid / TS; threads
-// past W TS sit out).
+// One tile of K4 / K3 on a block of TILE_THREADS threads: the states [b0,
+// b0 + TS) (those below B live) in the rows at `tile`, phases 0-4 of
+// state_tile, then (5) the columns; stops after phase LAST
+// (probes/dense_fused_phases.py cuts it there; the launcher's kernel runs
+// all five).  SL = 2: every reaction has 2 reactant and 2 product slots
+// (else 0: the counts of d).
 template <typename S, bool HAS_PM, int SL, int LAST>
 __device__ __forceinline__ void dense_fused_tile(
     const DenseTables<S>& t, const PartsDims<S>& d, int has_spec, int TS,
     const TileLayout& L, long long b0, const S* __restrict__ y,
     const S* __restrict__ Pin, long long B, S* __restrict__ Jt,
     S* __restrict__ fout, S* __restrict__ tile) {
-  const int N = d.N, R = d.R, J = N - 1, conp = d.conp;
-  const int k = d.Sf + d.Sp;
+  state_tile<S, HAS_PM, SL, false, LAST>(t.p, t.f, t.rxn_order, d, has_spec,
+                                         TS, L, b0, y, Pin, B, Jt, fout, tile,
+                                         SourceOut<S>{});
+  if (LAST < 5) return;
+  const int N = d.N, J = N - 1, conp = d.conp;
   const int tid = threadIdx.x;
   const int live = (int)(B - b0 < TS ? B - b0 : TS);
-  const int W = THREADS / TS, s = tid % TS, g = tid / TS;
+  const int W = TILE_THREADS / TS, s = tid % TS, g = tid / TS;
   const bool on = g < W && s < live;
   const long long ts = TS, bs = b0 + s;
-  S* ty = tile + (size_t)L.y * TS;
-  S* scal = tile + (size_t)L.scal * TS;
-  S* st = tile + (size_t)L.st * TS;
-  S* omega = st;                        // phase 3 on: st's rows are free
-  S* domega = st + (size_t)N * TS;
-  S* sums = st + (size_t)2 * N * TS;
-  S* roles = tile + (size_t)L.roles * TS;
-  S* post = tile + (size_t)L.post * TS;
-  S* hrow = tile + (size_t)L.hrow * TS;
-  S* dcpr = hrow + (size_t)N * TS;
-  auto scalars = [&]() {
-    StateScalars<S> sc;
-    sc.rho = scal[s];
-    sc.mw_avg = scal[TS + s];
-    sc.yN = scal[2 * TS + s];
-    sc.dlnrho_dT = scal[3 * TS + s];
-    return sc;
-  };
-  auto closure_sums_here = [&]() {
-    const ClosureSums<S> c = closure_sums(N, ty, scalars(),
-                                          post + (size_t)3 * N * TS, dcpr, ts,
-                                          (long long)s);
-    sums[s] = c.sh;
-    sums[TS + s] = c.dsh;
-  };
-
-  // --- 0. the tile's y and P rows ------------------------------------------
-  for (int i = tid; i < (N + 1) * TS; i += THREADS) {
-    const int r = i / TS, si = i % TS;
-    if (si < live)
-      ty[(size_t)r * TS + si] =
-          r < N ? y[(size_t)r * B + b0 + si] : Pin[b0 + si];
-  }
-  __syncthreads();
-
-  // --- 1. state and NASA-7 thermo (jacobian_big.state_thermo) -------------
-  if (on) {
-    const StateScalars<S> sc =
-        state_phase(t.p, t.f, N, conp, ty, ty + (size_t)N * TS, ts,
-                    (long long)s, g, W, st, post + (size_t)3 * N * TS, hrow,
-                    dcpr);
-    if (g == 0) {
-      scal[s] = sc.rho;
-      scal[TS + s] = sc.mw_avg;
-      scal[2 * TS + s] = sc.yN;
-      scal[3 * TS + s] = sc.dlnrho_dT;
-    }
-  }
-  __syncthreads();
-  if (LAST < 2) return;
-
-  // --- 2. reaction parts into the role rows, in rxn_order -------------------
-  if (on)
-    for (int i = g; i < R; i += W) {
-      const int r = t.rxn_order[i];
-      store_roles(
-          reaction_parts<S, HAS_PM, SL, SL>(t.p, d, st, ts, s, r, roles),
-          roles, (size_t)k * R + r, R, ts, s, has_spec != 0);
-    }
-  __syncthreads();
-  if (LAST < 3) return;
-
-  // --- 3. stoichiometric contractions nu_net^T [q, dq_dT, c_u, cv] -----------
-  // (with a thread group to spare, its last one takes the closure's sums)
-  const bool spare = W > N;
-  if (on) {
-    contract_phase<S, HAS_PM>(t.f, has_spec, N, R, roles + (size_t)k * R * TS,
-                              ts, s, g, W, omega, domega, post,
-                              post + (size_t)N * TS);
-    if (spare && g == W - 1) closure_sums_here();
-  }
-  __syncthreads();
-  if (LAST < 4) return;
-
-  // --- 4. closure: dy/dt, the temperature column, the post rows ---------------
-  if (!spare) {
-    if (on && g == 0) closure_sums_here();
-    __syncthreads();
-  }
-  if (on) {
-    const StateScalars<S> sc = scalars();
-    if (g == 0) {
-      const ClosureSums<S> c = {sums[s], sums[TS + s]};
-      closure_temperature(t.f, N, sc, c, hrow, omega, domega, ts,
-                          (long long)s, post, Jt, fout, B, bs);
-    }
-    for (int n = g; n < J; n += W)
-      closure_species(t.f, N, n, sc, omega, domega, ts, (long long)s, post,
-                      Jt, fout, B, bs);
-  }
-  __syncthreads();
-  if (LAST < 5) return;
+  const S* roles = tile + (size_t)L.roles * TS;
+  const S* post = tile + (size_t)L.post * TS;
 
   // --- 5. the columns 1..J, G at a time ---------------------------------------
   S* stage = tile + (size_t)L.stage * TS;
@@ -293,7 +188,7 @@ __device__ __forceinline__ void dense_fused_tile(
 // The blocks loop over the tiles; SMEM: a tile's rows in dynamic shared
 // memory, else in the block's slice of `scratch` (tile rows x TS values)
 template <typename S, bool HAS_PM, int SL, bool SMEM, int LAST>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(TILE_THREADS, 1)
 dense_fused_kernel(DenseTables<S> t, PartsDims<S> d, int has_spec, int TS,
                    long long n_tiles, const S* __restrict__ y,
                    const S* __restrict__ Pin, long long B, S* __restrict__ Jt,
@@ -327,7 +222,7 @@ static int launch_kernel(const DenseTables<S>& t, const PartsDims<S>& d,
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  k<<<grid, THREADS, smem, stream>>>(t, d, has_spec, TS, n_tiles, y, P, B,
+  k<<<grid, TILE_THREADS, smem, stream>>>(t, d, has_spec, TS, n_tiles, y, P, B,
                                      Jt, f, scratch);
   return (int)cudaGetLastError();
 }
@@ -349,7 +244,7 @@ static int launch(DENSE_FUSED_PARAMS(S)) {
   const TileLayout L =
       tile_layout(dims[0], dims[1], dims[2], dims[3], dims[10]);
   const long long TS = plan[0], shared = plan[1], grid = plan[2];
-  if (plan[3] != L.rows || TS < 1 || TS > THREADS || grid < 1) return -1;
+  if (plan[3] != L.rows || TS < 1 || TS > TILE_THREADS || grid < 1) return -1;
   const long long n_tiles = (B + TS - 1) / TS;
   const size_t smem = shared ? (size_t)L.rows * TS * sizeof(S) : 0;
   if (smem > SMEM_MAX || grid > n_tiles) return -1;

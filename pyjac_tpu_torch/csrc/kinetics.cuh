@@ -6,10 +6,11 @@
 //   parts kernel K5 (csrc/big_parts.cu), which the dense fused kernels K4
 //   and K3 (csrc/dense_fused.cu) and the sparse stage-A kernel K1
 //   (csrc/sparse_stage_a.cu) run on every reaction of a state;
-// * state_phase, contract_phase, closure: the per-state phases of K1, K4
-//   and K3 around their reaction parts (thermo; nu_net^T contractions;
+// * state_phase, contract_phase, closure_*: the per-state phases of K1,
+//   K4 and K3 around their reaction parts (thermo; nu_net^T contractions;
 //   dy/dt, the temperature column and the column-finishing rows), the
-//   closure in three parts that K4 / K3 spread over a block;
+//   closure in three parts that a block spreads over its threads (the
+//   state tile that runs them: csrc/state_tile.cuh);
 // * column_entry, column_temperature: one Jacobian column's species rows
 //   from a CSR contraction of its operand rows and the column-finishing
 //   `post` rows (`_post_col`), and its temperature row, which K4's and
@@ -218,16 +219,18 @@ __device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
 // from the (5 + 3N, B) state/thermo rows st = [T, ln T, P, rho, mw_avg,
 // conc, smh, dsmh] (jacobian_big.state_thermo): the role array (Sf + Sp +
 // 6, R, B) is [vals_f_s; vals_p_s; q; dq_dT; c_u; c_1; psi_q; xi_q]; this
-// writes row r of the Sf + Sp slot roles at slots and returns the six
-// others, which the caller stores (K5, K4 and K3 after the slots, with
-// store_roles; K1 into a scratch, and psi_q and xi_q into its source
-// stack).  HAS_PM = false drops the pressure-modification machinery; SF
-// > 0 (SP > 0) fixes the reactant (product) slot count at compile time,
-// keeping the slot arrays in registers (K4 / K3 for Sf = Sp = 2).
+// writes row r of the Sf + Sp slot roles at slots, at row stride oB and
+// state ob, and returns the six others, which the caller stores (K5, K4
+// and K3 after the slots, with store_roles; K1 on its tile, and psi_q and
+// xi_q into its source stack, where the slot roles went too).  HAS_PM =
+// false drops the pressure-modification machinery; SF > 0 (SP > 0) fixes
+// the reactant (product) slot count at compile time, keeping the slot
+// arrays in registers (K1, K4, K3 and K5 for Sf = Sp = 2).
 template <typename S, bool HAS_PM, int SF = 0, int SP = 0>
 __device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const PartsTables<S>& t, const PartsDims<S>& d, const S* __restrict__ st,
-    long long B, long long b, int r, S* __restrict__ slots) {
+    long long B, long long b, int r, S* __restrict__ slots, long long oB,
+    long long ob) {
   const int N = d.N, R = d.R, conp = d.conp;
   const int Sf = SF ? SF : d.Sf, Sp = SP ? SP : d.Sp;
   const int fl = t.flags[r];
@@ -449,12 +452,12 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
   for (int s = 0; s < Sf; ++s) {
     const S kd = kf * dpf[s];
     if (rsp[s] == N - 1) dlf = dlf + kd;
-    AT(slots, (size_t)s * R + r) = pmrho * kd;
+    slots[((size_t)s * R + r) * oB + ob] = pmrho * kd;
   }
   for (int s = 0; s < Sp; ++s) {
     const S kd = kr * dpr[s];
     if (psp[s] == N - 1) dlr = dlr + kd;
-    AT(slots, (size_t)(Sf + s) * R + r) = pmrho * kd;
+    slots[((size_t)(Sf + s) * R + r) * oB + ob] = pmrho * kd;
   }
   return {q, dq_dT, c_u, -pm * rho * t.inv_mw[N - 1] * (dlf - dlr),
           psi * qnet, xi * qnet};
@@ -464,10 +467,11 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
 // The per-state phases around the reaction parts that K1
 // (csrc/sparse_stage_a.cu) and K4 / K3 (csrc/dense_fused.cu) share: the
 // state and thermo before them, the stoichiometric contractions and the
-// closure (`_finish_dd`) after them.  A block owns 32 consecutive states
-// (lane = state b) and runs W warps over them; warp w takes species
-// w, w + W, ...; the kernel puts a __syncthreads() between two phases and
-// calls each for its live lanes only.
+// closure (`_finish_dd`) after them.  The kernels run them on a tile of
+// states (csrc/state_tile.cuh), called with (B, b) = (the tile's width,
+// the state's column in it); W thread groups share a state, group w
+// taking species w, w + W, ...; a __syncthreads() separates two phases,
+// each called for live states only.
 
 // matches the numpy table order of jacobian_sparse.finish_tables; in K1's
 // and K4's table structs it follows the PartsTables
@@ -583,12 +587,14 @@ __device__ __forceinline__ void contract_phase(
 // 4. the closure (`_finish_dd`): dy/dt f (N, B), the temperature column
 // col0 (N, B) and the post rows eWn, fkJ, mr, ish, mw_avg, fT
 // (jacobian_sparse.post_rows; phase 1 wrote cp, phase 3 v_u and v_c), in
-// three parts that K4 / K3 spread over a block: (a) closure_sums, the two
+// three parts that a tile spreads over its threads: (a) closure_sums, the two
 // sums over the species, one state per thread; (b) closure_species, one
 // species' rows of col0 and f and fkJ, mr; (c) closure_temperature, the
-// temperature row's sums and eWn, one state per thread.  closure() runs
-// the three on one thread (K1's warp 0).  col0 and fout are written at
-// row stride oB, state ob; everything else at (B, b).
+// temperature row's sums and eWn, one state per thread (itself each
+// species' temperature_terms, summed in order, then temperature_row: K1
+// computes the terms over its block and sums them on one thread).  col0
+// and fout are written at row stride oB, state ob; everything else at
+// (B, b).
 template <typename S>
 struct ClosureSums {
   S sh, dsh;
@@ -625,26 +631,33 @@ __device__ __forceinline__ void closure_species(
   AT(post, 4 * N + J + n) = f.mw[n] * rho_inv;            // mr
 }
 
+// species n's terms of the temperature row's three sums (fT, and s1, s2
+// of its column-0 entry), after storing its eWn; denomT = rho sh
 template <typename S>
-__device__ __forceinline__ void closure_temperature(
-    const FinishTables<S>& f, int N, const StateScalars<S>& s,
-    const ClosureSums<S>& c, const S* __restrict__ hrow,
-    const S* __restrict__ omega, const S* __restrict__ domega, long long B,
-    long long b, S* __restrict__ post, S* __restrict__ col0,
-    S* __restrict__ fout, long long oB, long long ob) {
+struct TemperatureTerms {
+  S fT, s1, s2;
+};
+
+template <typename S>
+__device__ __forceinline__ TemperatureTerms<S> temperature_terms(
+    const FinishTables<S>& f, int N, int n, S denomT,
+    const S* __restrict__ hrow, const S* __restrict__ omega,
+    const S* __restrict__ domega, long long B, long long b,
+    S* __restrict__ post) {
+  const S om = AT(omega, n);
+  const S ew = AT(hrow, n) * f.mw[n] / denomT;
+  AT(post, 2 * N + n) = ew;                               // eWn
+  return {ew * om, AT(post, 3 * N + n) * f.mw[n] * om / denomT,
+          ew * AT(domega, n)};
+}
+
+// the temperature row from its sums: col0's and f's row 0, ish, mw_avg, fT
+template <typename S>
+__device__ __forceinline__ void temperature_row(
+    int N, const StateScalars<S>& s, const ClosureSums<S>& c, S fT, S s1,
+    S s2, long long B, long long b, S* __restrict__ post,
+    S* __restrict__ col0, S* __restrict__ fout, long long ob) {
   const int J = N - 1;
-  S* eWn = post + (size_t)2 * N * B;
-  const S* cpr = post + (size_t)3 * N * B;
-  const S denomT = s.rho * c.sh;
-  S fT = S(0), s1 = S(0), s2 = S(0);
-  for (int n = 0; n < N; ++n) {
-    const S om = AT(omega, n);
-    const S ew = AT(hrow, n) * f.mw[n] / denomT;
-    AT(eWn, n) = ew;
-    fT -= ew * om;
-    s1 += AT(cpr, n) * f.mw[n] * om / denomT;
-    s2 += ew * AT(domega, n);
-  }
   col0[ob] = -(s1 + s2) - fT * (s.dlnrho_dT + c.dsh / c.sh);
   fout[ob] = fT;
   AT(post, 4 * N + 2 * J) = S(1) / c.sh;
@@ -653,19 +666,22 @@ __device__ __forceinline__ void closure_temperature(
 }
 
 template <typename S>
-__device__ __forceinline__ void closure(
-    const FinishTables<S>& f, int N, const S* __restrict__ y,
-    const StateScalars<S>& s, const S* __restrict__ hrow,
-    const S* __restrict__ dcpr, const S* __restrict__ omega,
-    const S* __restrict__ domega, long long B, long long b,
-    S* __restrict__ post, S* __restrict__ col0, S* __restrict__ fout) {
-  const ClosureSums<S> c =
-      closure_sums(N, y, s, post + (size_t)3 * N * B, dcpr, B, b);
-  closure_temperature(f, N, s, c, hrow, omega, domega, B, b, post, col0,
-                      fout, B, b);
-  for (int n = 0; n < N - 1; ++n)
-    closure_species(f, N, n, s, omega, domega, B, b, post, col0, fout, B,
-                    b);
+__device__ __forceinline__ void closure_temperature(
+    const FinishTables<S>& f, int N, const StateScalars<S>& s,
+    const ClosureSums<S>& c, const S* __restrict__ hrow,
+    const S* __restrict__ omega, const S* __restrict__ domega, long long B,
+    long long b, S* __restrict__ post, S* __restrict__ col0,
+    S* __restrict__ fout, long long oB, long long ob) {
+  const S denomT = s.rho * c.sh;
+  S fT = S(0), s1 = S(0), s2 = S(0);
+  for (int n = 0; n < N; ++n) {
+    const TemperatureTerms<S> t =
+        temperature_terms(f, N, n, denomT, hrow, omega, domega, B, b, post);
+    fT -= t.fT;
+    s1 += t.s1;
+    s2 += t.s2;
+  }
+  temperature_row(N, s, c, fT, s1, s2, B, b, post, col0, fout, ob);
 }
 
 // Jacobian column j + 1 of state b (`_post_col`), from the CSR of its

@@ -51,6 +51,8 @@ MAX_SLOTS = 8
 
 # the int32 tables of finish_tables (its others are float64)
 FINISH_INT_TABLES = ('nut_ptr', 'nut_row')
+# ... and of kernel_tables after K5's
+KERNEL_INT_TABLES = FINISH_INT_TABLES + ('rxn_order',)
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +243,16 @@ def kernel_tables(packed) -> dict:
     """The stage-A kernel's tables under their buffer names, in the order
     of the C struct ``StageATables`` (``csrc/sparse_stage_a.cu``): K5's
     (``jacobian_big.parts_tables``, ``kp_``), the closure's
-    (:func:`finish_tables`, ``kf_``), then the third-body efficiency
-    slots ``ka_eff_val`` (R, S_eff) that scale ``psi_q`` into the source
-    stack."""
+    (:func:`finish_tables`, ``kf_``), the third-body efficiency slots
+    ``ka_eff_val`` (R, S_eff) that scale ``psi_q`` into the source stack,
+    then ``ka_rxn_order``, the order K1 takes the reactions in
+    (``jacobian_dense.reaction_order``, K4's: grouped by category)."""
     from .jacobian_big import parts_tables
+    from .jacobian_dense import reaction_order
     out = {'kp_' + k: v for k, v in parts_tables(packed).items()}
     out.update(('kf_' + k, v) for k, v in finish_tables(packed).items())
     out['ka_eff_val'] = np.ascontiguousarray(eff_slots(packed)[2].ravel())
+    out['ka_rxn_order'] = reaction_order(packed)
     return out
 
 

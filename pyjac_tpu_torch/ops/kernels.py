@@ -36,7 +36,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
            'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu')
 # device code the sources include (part of the build's hash)
-HEADERS = ('kinetics.cuh', 'columns.cuh')
+HEADERS = ('kinetics.cuh', 'state_tile.cuh', 'columns.cuh')
 ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # -fmad=false: no multiply-add contraction, so each kernel operation
 # rounds like the plain version's separate torch ops (near equilibrium
@@ -132,10 +132,10 @@ def load():
                        ctypes.c_longlong)
     lib.pyjac_stage_a_n_tables.argtypes = []
     lib.pyjac_stage_a_n_tables.restype = ci
-    lib.pyjac_stage_a_scratch_rows.argtypes = [vp]
-    lib.pyjac_stage_a_scratch_rows.restype = cll
+    lib.pyjac_stage_a_tile_rows.argtypes = [vp]
+    lib.pyjac_stage_a_tile_rows.restype = ci
     lib.pyjac_stage_a.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll,
-                                  vp, vp, vp, vp, vp, vp]
+                                  vp, vp, vp, vp, vp, vp, ci, vp]
     lib.pyjac_stage_a.restype = ci
     lib.pyjac_stage_b.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cll,
                                   vp]
@@ -219,19 +219,35 @@ def _kinetics_dims(mod) -> list:
             int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
 
 
-def stage_a(mod, y_t, P_t) -> dict:
+def stage_a(mod, y_t, P_t, plan=None) -> dict:
     """Launch the stage-A kernel K1 (``csrc/sparse_stage_a.cu``) for the
     tables of ``mod`` (a ``SparseJacobian``) on (N, B) states and a
-    (1, B) pressure/density row."""
+    (1, B) pressure/density row: returns ``src``, ``col0``, ``f`` and
+    ``post``.  ``plan``: a :func:`tile_plan` in place of the planner's
+    own choice."""
+    lib, args, out, _scratch = stage_a_args(mod, y_t, P_t, plan)
+    with torch.cuda.device(y_t.device):
+        err = lib.pyjac_stage_a(*args)
+    _raise_on(err, 'stage A kernel')
+    launches['stage_a'] += 1
+    return out
+
+
+def stage_a_args(mod, y_t, P_t, plan=None):
+    """The checked arguments of K1's C entry for ``mod`` on (N, B) states
+    and a (1, B) pressure/density row, under ``plan`` (default
+    :func:`tile_plan`'s for the card): (the library, the argument list,
+    the outputs it fills as {src, col0, f, post}, the scratch it uses:
+    keep it until the launch)."""
     from .rates import _LN_PA_RU
     from .jacobian_big import PARTS_INT_TABLES
-    from .jacobian_sparse import FINISH_INT_TABLES
+    from .jacobian_sparse import KERNEL_INT_TABLES
     dev, N, B = y_t.device, mod.N, y_t.shape[-1]
     _check('y_t', y_t, (N, B), F64, dev)
     _check('P_t', P_t, (1, B), F64, dev)
     mod.check_kernel_coverage(dev)
     n_tabs, ptrs = _table_ptrs(mod, ('kp_', 'kf_', 'ka_'),
-                               PARTS_INT_TABLES + FINISH_INT_TABLES, F64, dev)
+                               PARTS_INT_TABLES + KERNEL_INT_TABLES, F64, dev)
     lib = load()
     if lib.pyjac_stage_a_n_tables() != n_tabs:
         raise RuntimeError('stage-A table count mismatch: %d in Python, %d '
@@ -239,20 +255,18 @@ def stage_a(mod, y_t, P_t) -> dict:
                                               lib.pyjac_stage_a_n_tables()))
     dims = _kinetics_dims(mod) + [mod.S_eff]
     cdims = (ctypes.c_int * len(dims))(*dims)
-    src = torch.empty((mod.n_src, B), dtype=F64, device=dev)
-    col0 = torch.empty((N, B), dtype=F64, device=dev)
-    f = torch.empty((N, B), dtype=F64, device=dev)
-    post = torch.empty((mod.n_post, B), dtype=F64, device=dev)
-    scratch = torch.empty((lib.pyjac_stage_a_scratch_rows(cdims), B),
-                          dtype=F64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pyjac_stage_a(ptrs, n_tabs, cdims, len(dims),
-                                _LN_PA_RU, _ptr(y_t), _ptr(P_t), B,
-                                _ptr(src), _ptr(col0), _ptr(f), _ptr(post),
-                                _ptr(scratch), _stream(dev))
-    _raise_on(err, 'stage A kernel')
-    launches['stage_a'] += 1
-    return dict(src=src, col0=col0, f=f, post=post)
+    if plan is None:
+        plan = tile_plan(mod, F64, B, _n_sm(dev))
+    cplan = _plan_arg(plan, lib.pyjac_stage_a_tile_rows(cdims), 'stage A')
+    out = {k: torch.empty((rows, B), dtype=F64, device=dev)
+           for k, rows in (('src', mod.n_src), ('col0', N), ('f', N),
+                           ('post', mod.n_post))}
+    scratch = torch.empty((max(1, plan['scratch_elems']),), dtype=F64,
+                          device=dev)
+    args = [ptrs, n_tabs, cdims, len(dims), _LN_PA_RU, _ptr(y_t), _ptr(P_t),
+            B, *(_ptr(out[k]) for k in ('src', 'col0', 'f', 'post')),
+            _ptr(scratch), cplan, 4, _stream(dev)]
+    return lib, args, out, scratch
 
 
 def stage_b(mod, src, post):
@@ -411,7 +425,7 @@ def dense_fused(mod, y_t, P_t, plan=None):
     """Launch the K4 kernel (``csrc/dense_fused.cu``) for the tables of
     ``mod`` (a ``DenseJacobian``) on (N, B) states and a (1, B)
     pressure/density row: returns ``Jt`` (N, N, B), [column, row,
-    batch], and dy/dt ``f`` (N, B).  ``plan``: a :func:`dense_tile_plan`
+    batch], and dy/dt ``f`` (N, B).  ``plan``: a :func:`tile_plan`
     in place of the planner's own choice."""
     return _dense(mod, y_t, P_t, F64, 'pyjac_dense_fused', 'dense_fused',
                   'K4 dense fused kernel', plan)
@@ -427,14 +441,15 @@ def fused_f32(mod, y_t, P_t, plan=None):
                   'fused_f32', 'K3 f32 fused kernel', plan)
 
 
-# K4's / K3's block (csrc/dense_fused.cu THREADS) and the dynamic shared
-# memory one block may use on the H100 (227 KB)
-DENSE_THREADS = 512
+# the block of a state tile (csrc/state_tile.cuh TILE_THREADS: K1, K4,
+# K3) and the dynamic shared memory one block may use on the H100 (227 KB)
+TILE_THREADS = 512
 SMEM_MAX = 232448
 # bytes the global placement's live slices may take: most of the 50 MB L2,
 # leaving room for the tables and the stores of J passing through
 L2_SLICES = 40e6
-# J's stores are whole 32 B sectors when a tile holds a multiple of this
+# a row's stores are whole 32 B sectors when a tile holds a multiple of
+# this
 SECTOR = 32
 
 
@@ -453,26 +468,51 @@ def dense_tile_rows(N: int, R: int, Sf: int, Sp: int,
     return rows + (N if 4 * R < N else 0)
 
 
-def dense_tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
-                    placement=None) -> dict:
-    """K4's / K3's launch plan for ``mod`` (a ``DenseJacobian`` or an
-    ``F32Jacobian``) on B states in ``dtype``, on a card of ``n_sm``
+def stage_a_tile_rows(N: int, R: int, has_spec: bool = True) -> int:
+    """Rows of one state's tile in K1 (``stage_a_layout`` in
+    ``csrc/sparse_stage_a.cu``, which the launcher checks): K4's less the
+    slot roles, which K1 writes straight to its source stack: y and P
+    (N + 1), the state scalars (4), the state/thermo rows (5 + 3N), the
+    per-reaction rows q, dq_dT, c_u, c_1, psi_q and, with
+    species-specific pdep, xi_q ((5 + has_spec) R), the post rows
+    (4N + 2J + 3), h and dcp (2N); plus 3N rows of closure terms where
+    the per-reaction rows are fewer."""
+    J = N - 1
+    per_rxn = (5 + int(bool(has_spec))) * R
+    return (N + 1) + 4 + (5 + 3 * N) + per_rxn + (4 * N + 2 * J + 3) + \
+        2 * N + (3 * N if 3 * N > per_rxn else 0)
+
+
+def tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
+              placement=None) -> dict:
+    """The launch plan of the tile kernel ``mod`` runs -- K1 for a
+    ``SparseJacobian``, K4 for a ``DenseJacobian``, K3 for an
+    ``F32Jacobian`` -- on B states in ``dtype``, on a card of ``n_sm``
     SMs.  A block keeps a tile of ``tile`` states' rows
-    (:func:`dense_tile_rows`) on the SM: in dynamic shared memory
-    (``placement`` 'shared', one block a tile) where one state's rows fit
-    in :data:`SMEM_MAX`, the tile then as many states as fit, rounded
-    down to whole 32 B sectors of J where that leaves a sector's states;
-    else in a slice of global scratch per block ('global': ``n_sm``
-    persistent blocks looping over the tiles, at most one sector's states
-    a tile and as many as keep the slices within :data:`L2_SLICES`).
-    ``tile`` / ``placement`` override the choice.  Returns {tile,
-    placement, grid, rows, smem_bytes, scratch_elems}."""
+    (:func:`stage_a_tile_rows`, :func:`dense_tile_rows`) on the SM: in
+    dynamic shared memory (``placement`` 'shared', one block a tile)
+    where one state's rows fit in :data:`SMEM_MAX`, the tile then as
+    many states as fit, rounded down to whole 32 B sectors of the output
+    rows where that leaves a sector's states; else in a slice of global
+    scratch per block ('global': ``n_sm`` persistent blocks looping over
+    the tiles, at most one sector's states a tile and as many as keep
+    the slices within :data:`L2_SLICES`).  K1 takes at most as many
+    states as leave a spare thread group, one more than N (phase 3 then
+    runs the closure's sums; on the card 8 flagship states a tile beat
+    12 by 5%: PERF.md).  ``tile`` / ``placement`` override the choice.
+    Returns {tile, placement, grid, rows, smem_bytes, scratch_elems}."""
+    from .jacobian_sparse import SparseJacobian
     itemsize = torch.empty((), dtype=dtype).element_size()
     dims = _kinetics_dims(mod)
-    rows = dense_tile_rows(*dims[:4], dims[10])
+    if isinstance(mod, SparseJacobian):
+        rows = stage_a_tile_rows(dims[0], dims[1], dims[10])
+        most = max(1, TILE_THREADS // (dims[0] + 1))
+    else:
+        rows = dense_tile_rows(*dims[:4], dims[10])
+        most = TILE_THREADS
     per_state = rows * itemsize
     group = SECTOR // itemsize
-    fit = SMEM_MAX // per_state
+    fit = min(SMEM_MAX // per_state, most)
     if placement is None:
         placement = 'shared' if fit >= 1 else 'global'
     if placement not in ('shared', 'global'):
@@ -484,9 +524,9 @@ def dense_tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
         else:
             tile = max(1, min(group, int(L2_SLICES // (n_sm * per_state))))
     tile = int(tile)
-    if not 1 <= tile <= DENSE_THREADS:
+    if not 1 <= tile <= TILE_THREADS:
         raise ValueError('a tile holds 1 to %d states, got %d'
-                         % (DENSE_THREADS, tile))
+                         % (TILE_THREADS, tile))
     n_tiles = -(-int(B) // tile)
     if placement == 'shared':
         smem = rows * tile * itemsize
@@ -499,6 +539,21 @@ def dense_tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
         scratch = grid * rows * tile
     return dict(tile=tile, placement=placement, grid=grid, rows=rows,
                 smem_bytes=smem, scratch_elems=scratch)
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _plan_arg(plan, kernel_rows: int, what: str):
+    """``plan`` as the C entries take it, after checking its rows
+    against the kernel's own count."""
+    if kernel_rows != plan['rows']:
+        raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
+                           'kernel' % (what, plan['rows'], kernel_rows))
+    return (ctypes.c_longlong * 4)(
+        plan['tile'], int(plan['placement'] == 'shared'), plan['grid'],
+        plan['rows'])
 
 
 def _dense(mod, y_t, P_t, dtype, entry, name, what, plan=None):
@@ -515,7 +570,7 @@ def _dense(mod, y_t, P_t, dtype, entry, name, what, plan=None):
 def dense_args(mod, y_t, P_t, dtype, what, plan=None):
     """The checked arguments of K4's / K3's C entry for ``mod`` on (N, B)
     states and a (1, B) pressure/density row in ``dtype``, under ``plan``
-    (default :func:`dense_tile_plan`'s for the card): (the library, the
+    (default :func:`tile_plan`'s for the card): (the library, the
     argument list, the outputs Jt and f it fills, the scratch it uses:
     keep it until the launch)."""
     from .rates import _LN_PA_RU
@@ -534,16 +589,8 @@ def dense_args(mod, y_t, P_t, dtype, what, plan=None):
     dims = _kinetics_dims(mod)
     cdims = (ctypes.c_int * len(dims))(*dims)
     if plan is None:
-        plan = dense_tile_plan(
-            mod, dtype, B,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
-    if lib.pyjac_dense_fused_tile_rows(cdims) != plan['rows']:
-        raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
-                           'kernel' % (what, plan['rows'],
-                                       lib.pyjac_dense_fused_tile_rows(cdims)))
-    cplan = (ctypes.c_longlong * 4)(
-        plan['tile'], int(plan['placement'] == 'shared'), plan['grid'],
-        plan['rows'])
+        plan = tile_plan(mod, dtype, B, _n_sm(dev))
+    cplan = _plan_arg(plan, lib.pyjac_dense_fused_tile_rows(cdims), what)
     Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
     f = torch.empty((N, B), dtype=dtype, device=dev)
     scratch = torch.empty((max(1, plan['scratch_elems']),), dtype=dtype,

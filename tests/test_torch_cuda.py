@@ -136,6 +136,97 @@ def test_launchers_check_inputs(card):
                                     device=card))
 
 
+def _assert_stage_a_close(got, ref):
+    """K1's outputs against ``stage_a_reference``'s on the same states:
+    each source row within 1e-9 of its largest entry (its psi_q and
+    xi_q rows carry net rates, which cancel), col0 and f per state within
+    1e-8 (the repo's dy/dt metric; their temperature row on its own),
+    each post row within 1e-8 of its largest entry per state."""
+    def rows(a, b):
+        return float(((a - b).abs().amax(-1) /
+                      b.abs().amax(-1).clamp_min(1e-300)).max())
+
+    def states(a, b):
+        return float(((a - b).abs().amax(0) /
+                      b.abs().amax(0).clamp_min(1e-300)).max())
+
+    assert rows(got['src'], ref['src']) < 1e-9
+    for k in ('col0', 'f'):
+        assert rows(got[k][:1], ref[k][:1]) < 1e-8, k
+        assert states(got[k][1:], ref[k][1:]) < 1e-8, k
+    assert states(got['post'], ref['post']) < 1e-8
+
+
+def _n_sm(card):
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+@pytest.mark.parametrize('placement', ['shared', 'global'])
+@pytest.mark.parametrize('conp', [True, False])
+def test_stage_a_placements_on_card(card, placement, conp):
+    """K1 with its tiles in shared memory and in global slices, on 1001
+    flagship states (no multiple of a tile: the last is ragged), agrees
+    with ``stage_a_reference`` and, bit for bit, with the planner's own
+    launch: a state's arithmetic does not depend on its tile."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:1001], d['P'][:1001]
+    if not conp:
+        P = _density(p, y, P)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(np.asarray(P)[None].copy(), device=card)
+    sj = SparseJacobian(p, conp=conp, device=card)
+    plan = kernels.tile_plan(sj, torch.float64, 1001, _n_sm(card),
+                             placement=placement)
+    assert plan['placement'] == placement and 1001 % plan['tile']
+    kernels.reset_launches()
+    got = kernels.stage_a(sj, y_t, P_t, plan=plan)
+    own = sj.stage_a(y_t, P_t)
+    torch.cuda.synchronize(card)
+    assert kernels.launches['stage_a'] == 2
+    assert all(torch.equal(got[k], own[k]) for k in got)
+    _assert_stage_a_close(got, stage_a_reference(p, y_t, P_t, conp))
+
+
+def test_stage_a_654_class_on_card(card):
+    """The 654-species class through K1 (167.5 KB a state: the planner's
+    one state a tile in shared memory) agrees with ``stage_a_reference``
+    on 5 states, and the global placement's slices give the same outputs
+    bit for bit."""
+    _, p = packed_from_text(plausible_mechanism(654, 2716, seed=5))
+    y, _, P = random_states(p.mech, 5, seed=3)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(P[None].copy(), device=card)
+    sj = SparseJacobian(p, device=card)
+    plan = kernels.tile_plan(sj, torch.float64, 5, _n_sm(card))
+    assert (plan['tile'], plan['placement']) == (1, 'shared')
+    got = sj.stage_a(y_t, P_t)
+    glob = kernels.stage_a(sj, y_t, P_t, plan=kernels.tile_plan(
+        sj, torch.float64, 5, _n_sm(card), placement='global'))
+    torch.cuda.synchronize(card)
+    assert all(torch.equal(got[k], glob[k]) for k in got)
+    _assert_stage_a_close(got, stage_a_reference(p, y_t, P_t, True))
+
+
+def test_stage_a_refuses_a_wrong_plan(card):
+    """K1's launcher checks a plan's rows against the kernel's own layout,
+    and the C entry refuses a tile larger than shared memory takes;
+    neither launches."""
+    _, p = flagship()
+    sj = SparseJacobian(p, device=card)
+    y_t = torch.zeros((sj.N, 256), dtype=torch.float64, device=card)
+    P_t = torch.ones((1, 256), dtype=torch.float64, device=card)
+    plan = kernels.tile_plan(sj, torch.float64, 256, _n_sm(card))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match='tile rows mismatch'):
+        kernels.stage_a(sj, y_t, P_t, plan=dict(plan, rows=plan['rows'] + 1))
+    big = dict(plan, tile=kernels.SMEM_MAX // (plan['rows'] * 8) + 1, grid=1)
+    assert big['rows'] * big['tile'] * 8 > kernels.SMEM_MAX
+    with pytest.raises(RuntimeError, match='invalid dimensions'):
+        kernels.stage_a(sj, y_t, P_t, plan=big)
+    assert kernels.launches['stage_a'] == 0
+
+
 # ---------------------------------------------------------------------------
 # the large-mechanism pipeline (K5, K6, K7)
 # ---------------------------------------------------------------------------
@@ -149,6 +240,29 @@ def _big_pair(p, y, P, **kw):
     torch.cuda.synchronize()
     return J0.numpy(), f0.numpy(), J.cpu().numpy(), f.cpu().numpy(), dict(
         kernels.launches)
+
+
+def test_big_parts_two_slots_match_run_time_on_card(card):
+    """K5's 2 + 2 instantiation (the flagship's slot counts fixed at
+    compile time) and its run-time slot loops (the flagship padded to 3
+    reactant slots: the extra slot has nu 0, so every product and
+    derivative is unchanged) give the same role rows bit for bit on 1001
+    PaSR states, the padded slot's row aside."""
+    _, p = flagship()
+    pad = ((0, 0), (0, 1))
+    wide = dataclasses.replace(p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
+                               reac_nu=np.pad(np.asarray(p.reac_nu), pad))
+    d = np.load(DATA / 'flagship_states.npz')
+    y_t = torch.as_tensor(d['y'][:1001].T.copy(), device=card)
+    P_t = torch.as_tensor(d['P'][None, :1001].copy(), device=card)
+    roles = []
+    for q in (p, wide):
+        bj = BigJacobian(q, device=card)
+        roles.append(bj.parts(state_thermo(bj.packed, y_t, P_t, True)))
+    torch.cuda.synchronize(card)
+    two, run = roles
+    assert (two.shape[0], run.shape[0]) == (10, 11)
+    assert torch.equal(two[:2], run[:2]) and torch.equal(two[2:], run[3:])
 
 
 @pytest.mark.parametrize('kw', [{}, dict(sparse_cols=False)])
@@ -345,7 +459,7 @@ def test_dense_fused_placements_on_card(card, placement, conp):
     y_t = torch.as_tensor(y.T.copy(), device=card)
     P_t = torch.as_tensor(np.asarray(P)[None].copy(), device=card)
     dj = DenseJacobian(p, conp=conp, device=card)
-    plan = kernels.dense_tile_plan(
+    plan = kernels.tile_plan(
         dj, torch.float64, 1001,
         torch.cuda.get_device_properties(card).multi_processor_count,
         placement=placement)
@@ -375,7 +489,7 @@ def test_dense_fused_654_class_on_card(card, dtype):
     P_t = torch.as_tensor(P[None].copy(), dtype=dtype, device=card)
     mod = (DenseJacobian if dtype == torch.float64 else F32Jacobian)(
         p, device=card)
-    plan = kernels.dense_tile_plan(mod, dtype, 5)
+    plan = kernels.tile_plan(mod, dtype, 5)
     assert (plan['tile'], plan['placement']) == (
         (1, 'global') if dtype == torch.float64 else (1, 'shared'))
     Jt, f = mod.call_tr(y_t, P_t)
@@ -553,7 +667,7 @@ def test_fused_f32_placements_on_card(card, placement):
     y_t = torch.as_tensor(y.T.copy(), dtype=torch.float32, device=card)
     P_t = torch.as_tensor(P[None].copy(), dtype=torch.float32, device=card)
     fj = F32Jacobian(p, device=card)
-    plan = kernels.dense_tile_plan(
+    plan = kernels.tile_plan(
         fj, torch.float32, 1001,
         torch.cuda.get_device_properties(card).multi_processor_count,
         placement=placement)

@@ -227,7 +227,7 @@ def test_launcher_refuses_cpu_tensors(tmp_path_factory):
 
 
 # ---------------------------------------------------------------------------
-# K4's tile planner (kernels.dense_tile_plan): what the card's launch asks
+# K4's tile planner (kernels.tile_plan): what the card's launch asks
 # for, computed on the host
 # ---------------------------------------------------------------------------
 
@@ -259,7 +259,7 @@ def test_tile_plan(name, tile, placement):
     tiles."""
     dj = DenseJacobian(_plan_packed(name), device='cpu')
     B = 32768
-    plan = kernels.dense_tile_plan(dj, torch.float64, B)
+    plan = kernels.tile_plan(dj, torch.float64, B)
     dims = kernels._kinetics_dims(dj)
     rows = kernels.dense_tile_rows(*dims[:4], dims[10])
     assert (plan['tile'], plan['placement'], plan['rows']) == (
@@ -308,16 +308,16 @@ def test_tile_plan_ragged_and_overrides():
     placement: 132 slices of 4 states); a tile that does not fit shared
     memory, no tile, and an unknown placement raise."""
     dj = DenseJacobian(_plan_packed('flagship'), device='cpu')
-    plan = kernels.dense_tile_plan(dj, torch.float64, 4099)
+    plan = kernels.tile_plan(dj, torch.float64, 4099)
     assert (plan['tile'], plan['grid']) == (8, 513)
-    seven = kernels.dense_tile_plan(dj, torch.float64, 4099, tile=7)
+    seven = kernels.tile_plan(dj, torch.float64, 4099, tile=7)
     assert (seven['grid'], seven['smem_bytes']) == (586, 7 * 8 * plan['rows'])
-    g = kernels.dense_tile_plan(dj, torch.float64, 4099, placement='global')
+    g = kernels.tile_plan(dj, torch.float64, 4099, placement='global')
     assert (g['tile'], g['placement'], g['grid']) == (4, 'global', 132)
     assert g['scratch_elems'] == 132 * 4 * g['rows']
     with pytest.raises(ValueError, match='shared memory'):
-        kernels.dense_tile_plan(dj, torch.float64, 4099, tile=9)
+        kernels.tile_plan(dj, torch.float64, 4099, tile=9)
     with pytest.raises(ValueError, match='a tile holds'):
-        kernels.dense_tile_plan(dj, torch.float64, 4099, tile=0)
+        kernels.tile_plan(dj, torch.float64, 4099, tile=0)
     with pytest.raises(ValueError, match='placement'):
-        kernels.dense_tile_plan(dj, torch.float64, 4099, placement='l2')
+        kernels.tile_plan(dj, torch.float64, 4099, placement='l2')

@@ -280,12 +280,12 @@ def test_tile_plan(name, N, R, seed, tile):
     m = F32Jacobian(packed_from_text(port_plausible(N, R, seed=seed))[1],
                     device='cpu')
     B = 262144
-    plan = kernels.dense_tile_plan(m, torch.float32, B)
+    plan = kernels.tile_plan(m, torch.float32, B)
     rows = kernels.dense_tile_rows(N, R, 2, 2, False)
     assert (plan['tile'], plan['placement'], plan['rows']) == (
         tile, 'shared', rows)
     assert plan['smem_bytes'] == rows * tile * 4 <= kernels.SMEM_MAX
     assert plan['grid'] == -(-B // tile) and plan['scratch_elems'] == 0
-    g = kernels.dense_tile_plan(m, torch.float32, B, placement='global')
+    g = kernels.tile_plan(m, torch.float32, B, placement='global')
     assert g['grid'] == 132 and g['scratch_elems'] == 132 * g['tile'] * rows
     assert g['scratch_elems'] * 4 <= kernels.L2_SLICES

@@ -209,16 +209,30 @@ def _struct_pointers(text, name):
 def test_kernel_tables_are_k5s_plus_k1s(synth53):
     """K1's tables are K5's ``parts_tables`` (the same arrays, in
     ``PartsTables`` order), then the per-state phases' ``finish_tables``
-    (K4's too), then ``eff_val``; the module registers them in that order,
-    and their count is the C struct ``StageATables``' (``N_TABLES``)."""
+    (K4's too), then ``eff_val``, then ``rxn_order``: K4's reaction order,
+    a permutation of the reactions grouped by category (flags, PLOG,
+    Chebyshev), ascending within a group; the module registers them in
+    that order, and their count is the C struct ``StageATables``'
+    (``N_TABLES``)."""
     p = synth53[2]
     want = [('kp_' + k, v) for k, v in parts_tables(p).items()]
     want += [('kf_' + k, v) for k, v in finish_tables(p).items()]
     tabs = kernel_tables(p)
-    assert [k for k, _ in want] + ['ka_eff_val'] == list(tabs)
+    assert [k for k, _ in want] + ['ka_eff_val', 'ka_rxn_order'] == \
+        list(tabs)
     for k, v in want:
         assert np.array_equal(tabs[k], v) and tabs[k].dtype == v.dtype, k
     assert tabs['ka_eff_val'].shape == (p.n_reactions * 3,)
+    order = tabs['ka_rxn_order']
+    R = p.n_reactions
+    assert order.dtype == np.int32 and np.array_equal(np.sort(order),
+                                                      np.arange(R))
+    pt = parts_tables(p)
+    key = (pt['flags'].astype(np.int64) | (pt['plog_pos'] >= 0) << 8 |
+           (pt['cheb_pos'] >= 0) << 9)[order]
+    assert (np.diff(key) >= 0).all() and len(np.unique(key)) > 8
+    same = np.diff(key) == 0
+    assert (np.diff(order)[same] > 0).all()
     sj = SparseJacobian(p, device='cpu')
     names = [k for k in sj._buffers if k[:3] in ('kp_', 'kf_', 'ka_')]
     assert names == list(tabs)
@@ -232,7 +246,130 @@ def test_kernel_tables_are_k5s_plus_k1s(synth53):
         == int(re.search(r'#define N_FINISH_TABLES (\d+)', text).group(1))
     assert _struct_pointers(text, 'StageATables') == len(tabs)
     assert re.search(r'#define N_TABLES \(N_PARTS_TABLES \+ '
-                     r'N_FINISH_TABLES \+ 1\)', text)
+                     r'N_FINISH_TABLES \+ 2\)', text)
+
+
+# ---------------------------------------------------------------------------
+# K1's tile (kernels.stage_a_tile_rows, kernels.tile_plan): what the card's
+# launch asks for, computed on the host
+# ---------------------------------------------------------------------------
+
+# the large classes K1 is held at on the card: (N, R, seed) of the port's
+# plausible_mechanism
+TILE_MECHS = {'usc': (111, 784, 5), '654': (654, 2716, 5)}
+_TILE_PACKED = {}
+
+
+def _tile_packed(request, name):
+    """The port's packed mechanism ``name``: a fixture's, or a large
+    class's."""
+    at = {'flagship': 1, 'synth': 1, 'synth53': 2}     # the fixtures' p
+    if name in at:
+        return request.getfixturevalue(name)[at[name]]
+    if name not in _TILE_PACKED:
+        from pyjac_tpu_torch.testers.synthetic import (
+            packed_from_text, plausible_mechanism as port_plausible)
+        N, R, seed = TILE_MECHS[name]
+        _TILE_PACKED[name] = packed_from_text(port_plausible(N, R,
+                                                             seed=seed))[1]
+    return _TILE_PACKED[name]
+
+
+@pytest.mark.parametrize('name, rows', [
+    ('flagship', 2272), ('synth', 269), ('synth53', 2603), ('usc', 5263),
+    ('654', 21439)])
+def test_stage_a_tile_rows_hold_the_plain_pieces(request, name, rows):
+    """A state's K1 tile rows (``stage_a_tile_rows``; the kernel's
+    ``stage_a_layout`` checks the count at launch) are the plain
+    version's per-state arrays that K1 does not write straight out: y
+    and P, 4 state scalars, the state/thermo rows (which later hold
+    omega, domega and the closure's 2 sums), the role array less its
+    slot roles (which go to the source stack) and, where no reaction has
+    species-specific pdep, its xi_q rows, the post rows, and h and dcp.
+    The planner counts the same."""
+    from pyjac_tpu_torch.ops.jacobian_big import (finish, parts_reference,
+                                                  state_thermo)
+    from pyjac_tpu_torch.testers.synthetic import random_states as prs
+    p = _tile_packed(request, name)
+    y, _, P = prs(p.mech, 2, seed=3)
+    y_t = torch.as_tensor(y.T.copy())
+    P_t = torch.as_tensor(np.asarray(P)[None].copy())
+    st = state_thermo(p, y_t, P_t, True)
+    roles = parts_reference(p, st, True)
+    post = finish(p, st, roles, True)['post']
+    N, R = p.n_species, p.n_reactions
+    k = p.reac_sp.shape[1] + p.prod_sp.shape[1]
+    spec = bool(p.has_specific_pdep_sp)
+    assert st['rows'].shape[0] >= 2 * N + 2
+    want = (N + 1) + 4 + st['rows'].shape[0] + \
+        (roles.shape[0] - k - (not spec)) * R + post.shape[0] + 2 * N
+    assert kernels.stage_a_tile_rows(N, R, spec) == want == rows
+    sj = SparseJacobian(p, device='cpu')
+    assert kernels.tile_plan(sj, torch.float64, 64)['rows'] == want
+
+
+@pytest.mark.parametrize('name, tile', [
+    ('flagship', 8), ('synth53', 8), ('usc', 4), ('654', 1)])
+def test_stage_a_tile_plan(request, name, tile):
+    """K1 keeps a tile of states' rows in shared memory, one block a tile
+    and no global scratch: as many states as fit one block's 227 KB and
+    leave a spare group of its 512 threads (at most 512 / (N + 1)),
+    rounded down to a multiple of 4 (4 f64 states a 32 B sector: the
+    stores of its source and post rows are then whole sectors) where 4
+    fit: the flagship 8 (12 fit, 9 leave a spare group), the 53/326
+    synth 8 of 20.3 KB, USC-II 4 of 41.1 KB; the 654 class, 167.5 KB a
+    state, one (on the card one state a tile in shared memory beat the
+    global slices by a third: PERF.md)."""
+    p = _tile_packed(request, name)
+    sj = SparseJacobian(p, device='cpu')
+    B = 131072
+    plan = kernels.tile_plan(sj, torch.float64, B)
+    rows = plan['rows']
+    assert (plan['tile'], plan['placement']) == (tile, 'shared')
+    fit = min(kernels.SMEM_MAX // (rows * 8),
+              max(1, 512 // (p.n_species + 1)))
+    assert tile == (fit // 4 * 4 if fit >= 4 else fit)
+    assert plan['scratch_elems'] == 0
+    assert plan['smem_bytes'] == rows * tile * 8 <= kernels.SMEM_MAX
+    assert plan['grid'] == B // tile + (B % tile > 0)
+
+
+def test_stage_a_global_plan(request):
+    """Under the global placement (a mechanism too large for shared
+    memory, or asked for) K1's tile rows live in one global slice per
+    SM, sized to fit the L2 together, the 132 blocks looping over the
+    tiles: 4 flagship states a slice, one 654-class state."""
+    for name, tile in (('flagship', 4), ('654', 1)):
+        sj = SparseJacobian(_tile_packed(request, name), device='cpu')
+        plan = kernels.tile_plan(sj, torch.float64, 131072,
+                                 placement='global')
+        assert (plan['tile'], plan['placement']) == (tile, 'global')
+        assert plan['smem_bytes'] == 0 and plan['grid'] == 132
+        assert plan['scratch_elems'] == 132 * tile * plan['rows']
+        assert plan['scratch_elems'] * 8 <= kernels.L2_SLICES
+
+
+def test_stage_a_tile_plan_ragged_and_overrides(flagship):
+    """A ragged batch takes one more tile; a tile / placement given
+    overrides the planner's choice (4 and 12 states a tile; the global
+    placement: 132 slices of 4 states); a tile that does not fit shared
+    memory, no tile, and an unknown placement raise."""
+    sj = SparseJacobian(flagship[1], device='cpu')
+    plan = kernels.tile_plan(sj, torch.float64, 4099)
+    assert (plan['tile'], plan['grid']) == (8, 513)
+    for tile, grid in ((4, 1025), (12, 342)):
+        other = kernels.tile_plan(sj, torch.float64, 4099, tile=tile)
+        assert (other['grid'], other['smem_bytes']) == (
+            grid, tile * 8 * plan['rows'])
+    g = kernels.tile_plan(sj, torch.float64, 4099, placement='global')
+    assert (g['tile'], g['placement'], g['grid']) == (4, 'global', 132)
+    assert g['scratch_elems'] == 132 * 4 * g['rows']
+    with pytest.raises(ValueError, match='shared memory'):
+        kernels.tile_plan(sj, torch.float64, 4099, tile=13)
+    with pytest.raises(ValueError, match='a tile holds'):
+        kernels.tile_plan(sj, torch.float64, 4099, tile=0)
+    with pytest.raises(ValueError, match='placement'):
+        kernels.tile_plan(sj, torch.float64, 4099, placement='l2')
 
 
 def test_kernel_launchers_refuse_cpu_tensors(flagship):
