@@ -8,8 +8,9 @@ pipeline ``BigJacobian`` (kernels K5, K6, K7) at the 654-species /
 ``integrate(jacobian='dd')`` with the dense fused kernel K4, the float32
 path ``F32Jacobian`` (kernel K3) and the port's bench
 (``python -m pyjac_tpu_torch.bench``, with the 1M-state
-``BatchEvaluator`` cell) — on one CUDA card, in phases; any failure
-exits non-zero at once:
+``BatchEvaluator`` cell) and the user front end (the performance and
+functional testers, the CLI, the PaSR generator) — on one CUDA card, in
+phases; any failure exits non-zero at once:
 
 1. device: a CUDA card is required; prints its ``nvidia-smi`` name and
    power limit;
@@ -22,7 +23,9 @@ exits non-zero at once:
    the same inputs, CONP and CONV: 16384 flagship states, and 16384
    states of the all-features synth at the flagship's width (53 species
    / 326 reactions: PLOG, Chebyshev, SRI, chemically activated,
-   species-specific pdep, fractional nu);
+   species-specific pdep, fractional nu); then the performance tester's
+   ``dd-sparse`` batches (phase 15b): the flagship at B = 131072 and
+   USC-II at B = 32768;
 3b. K1 against ``stage_a_reference`` at phase 3's tolerances, CONP and
    CONV, on the flagship at B = 4099 (a ragged last tile) under the
    planner's tile and under the global placement, the USC-II class at
@@ -66,7 +69,9 @@ exits non-zero at once:
    B = 16384, the flagship at B = 4099 (a ragged last tile) under the
    planner's tile and under the global placement, the USC-II class at
    B = 4096 (3 states a tile, ragged) and the 654 class at B = 128 (its
-   rows exceed shared memory: global slices), CONP and CONV; K2x against
+   rows exceed shared memory: global slices), and the performance
+   tester's ``dd`` batches (the flagship at B = 131072, USC-II at
+   B = 32768), CONP and CONV; K2x against
    ``stage_b_reference`` on the gathered operand at B = 131072;
 10. dense golden: both goldens through ``DenseJacobian`` and the
     flagship's through ``SparseJacobian(fuse_gather=False)``;
@@ -98,6 +103,24 @@ exits non-zero at once:
 14. the port's bench (``pyjac_tpu_torch.bench.run``: the headline, the
     1M-state device-resident cell, the f32 cell), its one-line JSON and
     the 1M cell's staging split.
+15. the user front end, in a work directory under the build directory
+    (the flagship's Chemkin text and its 4032 PaSR states, the USC-II
+    class with ``random_states(seed=3)``): the performance tester
+    (``testers.performance.performance_tester``) sweeps ``dd-sparse``
+    (K1 + K2), ``dd`` (K4) and ``pallas`` (K3) up to B = 131072
+    (``pallas`` 262144) and ``ajac`` / ``ad`` / ``fd`` (plain torch) at
+    the flagship, then ``dd-sparse`` and ``dd`` at the USC-II class, each
+    call with the launch counters set to 0 just before and read just
+    after (each method launches its kernels and no other); every output
+    file holds its repeats per size, a second call appends nothing, and
+    the ``dd-sparse`` / ``pallas`` / ``dd`` readings are printed beside
+    phases 5 / 13 / 11's (phases 3, 9a and 12 hold K1 + K2, K4 and K3
+    against their plain versions at each method's largest batch at each
+    mechanism); the functional tester
+    (``python -m pyjac_tpu_torch.testers``) on 64 of the flagship's PaSR
+    states, gated at twice the JAX package's reading; the CLI
+    (``python -m pyjac_tpu_torch``) with ``--validate`` CONP and CONV and
+    ``-ic``; a short PaSR run through the port's integrator.
 
 Phases 12-13 run between 10 and 11: a ``torch.profiler`` session after
 phase 11's traced integrate call records no kernels on the card.
@@ -125,7 +148,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from pyjac_tpu_torch import bench  # noqa: E402
+from pyjac_tpu_torch import bench, cli  # noqa: E402
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
 from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian import reaction_parts  # noqa: E402
@@ -141,6 +164,10 @@ from pyjac_tpu_torch.ops.jacobian_f32 import (  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_sparse import (  # noqa: E402
     SparseJacobian, finish_coefs, post_rows, stage_a_reference,
     stage_b_reference)
+from pyjac_tpu_torch.testers import pasr  # noqa: E402
+from pyjac_tpu_torch.testers.__main__ import main as testers_main  # noqa: E402
+from pyjac_tpu_torch.testers.performance import (  # noqa: E402
+    PerfConfig, check_step_file, method_precision, performance_tester)
 from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
     flagship, packed_from_text, plausible_mechanism, random_states,
     synthetic_mechanism)
@@ -231,6 +258,41 @@ SYNTH_CROSS_B = 4096
 # BigJacobian's default configuration is K5 + K6 (split_presmod on);
 # the dense one runs K5 + K7
 BIG_DENSE = dict(sparse_cols=False)
+
+# phase 15: the performance tester's sweep, (method, steps) per call, at
+# the flagship (the kernel methods up to the main path's B, 'pallas' to
+# the f32 cell's), then at the USC-II class; repeats per size
+FRONT_RUNS = (('dd-sparse', [4096, 32768, 131072]),
+              ('dd', [4096, 32768, 131072]),
+              ('pallas', [4096, 32768, 131072, 262144]),
+              ('ajac', [4096, 32768]), ('ad', [4096]), ('fd', [4096]))
+USC_RUNS = (('dd-sparse', [4096, 32768]), ('dd', [4096, 32768]))
+FRONT_REPEATS = 2
+# the JAX package's functional tester (run_functional_test, CPU, f64) on
+# the 64 flagship PaSR states `-n 64` selects, the worst state of each
+# metric (tests/test_torch_testers.py prints and pins them), printed beside
+# the card's
+FUNCTIONAL_JAX_CPU = {'err_jac_thr_max': 4.0016e-7, 'err_dydt': 1.8779e-2,
+                      'err_jac_norm': 1.8965e-15, 'err_jac_fd': 2.4730e-13}
+# the functional tester's gate: the worst thresholded max-relative error
+# of the closed-form J against forward-mode AD (entries above ||J|| /
+# 1e20), twice the JAX package's reading (the port's on the CPU: 6.814e-7).
+# The worst entry is a cancelled one just above the threshold: 9.4e-5 in a
+# row whose largest entry is 9.5e9
+TOL_FUNCTIONAL = 2 * FUNCTIONAL_JAX_CPU['err_jac_thr_max']
+# phase 15e's PaSR: a time-integrable plausible mechanism, particles x
+# species > 1024 (the port's integrator, not scipy's BDF), one residence
+# time of ten steps.  The pilot (1900 K) and the inlet (1000 K) are relaxed
+# as in tools/make_bench_states.py, over these horizons, and the inlet
+# enters at its relaxed temperature; the chemistry's (rtol, atol, max
+# steps) trade accuracy for a run of seconds (on the CPU, the integrator's
+# iterations: 3978 at (1e-5, 1e-9), 170 at these)
+PASR_MECH = (33, 120)
+PASR_PARTICLES = 32
+PASR_TAU_RES = 1e-5
+PASR_P_ATM = 10.0
+PASR_RELAX = (1e-5, 1e-6)
+PASR_TOLS = (1e-3, 1e-7, 3000)
 
 # H100 SXM peaks (NVIDIA H100 SXM data sheet), for each kernel's bound:
 # HBM3 bandwidth; FP64 outside the tensor cores (no kernel here issues
@@ -360,6 +422,26 @@ def case_states(name, packed, B, device):
     return big_states(packed, B, device)
 
 
+def tester_shapes(method):
+    """[(mechanism, B)]: the performance tester's largest batch of
+    ``method`` at each mechanism phase 15b sweeps (``FRONT_RUNS`` at the
+    flagship, ``USC_RUNS`` at USC-II)."""
+    return [(name, max(steps))
+            for name, runs in (('flagship', FRONT_RUNS), ('usc', USC_RUNS))
+            for m, steps in runs if m == method]
+
+
+def with_tester_shapes(cases, method, mechs, extra):
+    """``cases`` (tuples starting (name, packed, B)) followed by a case
+    ``(name, mechs[name], B) + extra`` for each of :func:`tester_shapes`
+    of ``method`` that they lack, so that the kernels the tester's sweep
+    launches are held against their plain versions at its shapes."""
+    have = {(c[0], c[2]) for c in cases}
+    return tuple(cases) + tuple((n, mechs[n], B) + extra
+                                for n, B in tester_shapes(method)
+                                if (n, B) not in have)
+
+
 def card_plan(mod, dtype, B, placement=None):
     """The launch plan of ``mod``'s tile kernel (K1, K4 or K3) on this card
     (``kernels.tile_plan``), with the placement forced where
@@ -376,7 +458,11 @@ def plan_tag(plan):
 def phase_kernels_vs_plain(cases, device, card):
     """Phase 3: K1 and K2 against their plain versions, same inputs, CONP
     and CONV; the case marked ``main`` gives the rows' ``max_abs_err``
-    (CONP)."""
+    (CONP).  K2's whole J is also gated floored, except at the USC-II and
+    654 classes: there J's temperature row cancels (its terms exceed it up
+    to 3.2e6-fold), so on the floored scale two summation orders differ
+    there most (phase 6 reads K6's 2.2e-8 at USC-II), and that row is held
+    on the summed magnitude of its terms, as phases 5b and 6 hold it."""
     res = {}
     for name, packed, B, main in cases:
         y_t, P_t = case_states(name, packed, B, device)
@@ -393,7 +479,8 @@ def phase_kernels_vs_plain(cases, device, card):
             cref = stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, ref['src'],
                                      ref['post'], conp)
             cgot = sj.stage_b(ref['src'], ref['post'])
-            gate_stage_b(sj, tag, cgot, cref, ref, whole=True)
+            gate_stage_b(sj, tag, cgot, cref, ref,
+                         whole=name not in BIG_CLASSES)
             if conp and main:
                 res = dict(stage_a=max_a,
                            stage_b=float((cgot - cref).abs().max()))
@@ -1846,10 +1933,231 @@ def phase_bench(device, card):
     return res
 
 
-def kernel_rows(errs, main_res, synth, big, integ, f32):
+# ---------------------------------------------------------------------------
+# the user front end: the performance tester, the functional tester, the
+# CLI and the PaSR generator
+# ---------------------------------------------------------------------------
+
+def write_mech_dir(work, name, text, states):
+    """``work/name/name.inp`` and ``work/name/states.npy`` (rows of
+    (t, T, P, Y in the mechanism's original species order))."""
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    path = os.path.join(d, name + '.inp')
+    with open(path, 'w') as fh:
+        fh.write(text)
+    np.save(os.path.join(d, 'states.npy'), states)
+    return path
+
+
+def state_rows(mech, y, P):
+    """(t, T, P, Y original order) rows of pivoted states ``y``, as
+    ``testers/__main__.py`` builds them."""
+    Y_full = np.concatenate([y[:, 1:], 1.0 - y[:, 1:].sum(1, keepdims=True)],
+                            axis=1)
+    return np.concatenate([np.zeros((len(y), 1)), y[:, :1], P[:, None],
+                           Y_full[:, np.asarray(mech.back_spec_mapping)]], 1)
+
+
+def sweep(work, runs, repeats, device):
+    """One ``performance_tester`` call per (method, steps), each with
+    the launch counters set to 0 just before and read just after."""
+    counts = {}
+    for method, steps in runs:
+        kernels.reset_launches()
+        performance_tester(work, methods=[method], repeats=repeats,
+                           steps=steps, verbose=False, device=device)
+        counts[method] = dict(kernels.launches)
+    return counts
+
+
+def sweep_file(work, name, method):
+    """The tester's output file of ``method`` at mechanism ``name``,
+    named by the precision the method computes in."""
+    return os.path.join(work, 'output', PerfConfig(
+        name, method, method_precision(method), 0).filename)
+
+
+def read_sweep(work, name, method):
+    """{num_odes: best ms} of one output file."""
+    best = {}
+    with open(sweep_file(work, name, method)) as fh:
+        for line in fh:
+            n, ms = line.split(',')
+            best[int(n)] = min(best.get(int(n), math.inf), float(ms))
+    return best
+
+
+def file_lines(work):
+    out = {}
+    for fn in sorted(os.listdir(os.path.join(work, 'output'))):
+        with open(os.path.join(work, 'output', fn)) as fh:
+            out[fn] = fh.read()
+    return out
+
+
+def phase_pasr(device, card):
+    """Phase 15e: a short PaSR run on the card, the chemistry through the
+    port's integrator (``n_part * N > 1024``)."""
+    t0 = time.perf_counter()
+    mech, packed = packed_from_text(plausible_mechanism(*PASR_MECH, seed=5))
+    N = packed.n_species
+    check(PASR_PARTICLES * N > 1024, 'PaSR size would take scipy BDF')
+    names = list(mech.species_names)
+    rng = np.random.default_rng(7)
+    X = np.zeros(N)
+    for i in [i for i, nm in enumerate(names) if nm != 'N2'][:6]:
+        X[i] = rng.uniform(0.05, 0.15)
+    X[names.index('N2')] = 1.0 - X.sum()
+    X /= X.sum()
+    Y = pasr.mole_to_mass_fracs(packed, X)
+    fw = np.asarray(mech.fwd_spec_mapping)
+    # the pilot (1900 K, relaxed onto the kinetic manifold) and the inlet
+    # (1000 K, its fastest modes damped) in one batch, each over its own
+    # horizon, with K4's stage Jacobian
+    y0 = np.stack([np.concatenate([[T], Y[fw][:-1]]) for T in (1900., 1000.)])
+    r = integrate(packed, torch.as_tensor(y0, device=device),
+                  torch.full((2,), PASR_P_ATM * 101325.0, dtype=F64,
+                             device=device),
+                  torch.as_tensor(PASR_RELAX, device=device), rtol=1e-3,
+                  atol=1e-12, max_steps=20000, jacobian='dd', device=device)
+    check(bool((r.status == STATUS_SUCCESS).all()),
+          'PaSR stream relaxation failed: %s' % r.status.tolist())
+    y1 = r.y.cpu().numpy()
+    Y_pilot = np.concatenate([y1[0, 1:], [1.0 - y1[0, 1:].sum()]])
+    Y_in = np.concatenate([y1[1, 1:], [1.0 - y1[1, 1:].sum()]])
+    X_in = Y_in * np.asarray(packed.inv_mw)
+    t1 = time.perf_counter()
+    data = pasr.run_simulation(
+        mech, 'premixed', init_temp=float(y1[1, 0]), pres=PASR_P_ATM,
+        eq_ratio=1.0,
+        fuel={}, oxidizer={}, num_part=PASR_PARTICLES, tau_res=PASR_TAU_RES,
+        tau_mix=1e-3, tau_pair=1e-3, num_res=1, seed=3, verbose=False,
+        inlet_X=X_in / X_in.sum(), pilot=(float(y1[0, 0]), Y_pilot),
+        chem_tols=PASR_TOLS, device=device)
+    T = data[..., 1]
+    lo = min(sp.Trange[0] for sp in mech.specs)
+    hi = max(sp.Trange[2] for sp in mech.specs)
+    print('phase 15e PaSR: %d species / %d reactions, %d particles, %d '
+          'frames (%s), T %.1f..%.1f K (thermo %.0f..%.0f K); streams '
+          'relaxed in %d iterations, %.1f s; run %.1f s (%s)' % (
+              N, packed.n_reactions, PASR_PARTICLES, data.shape[0],
+              data.shape, T.min(), T.max(), lo, hi, r.iterations, t1 - t0,
+              time.perf_counter() - t1, card))
+    check(np.isfinite(data).all(), 'non-finite PaSR particles')
+    check(bool(((T >= lo) & (T <= hi)).all()),
+          'PaSR temperature outside the thermo range')
+
+
+def phase_frontend(mech, device, card, main_res, f32, integ):
+    """Phase 15: the user entry points on the card, in a work directory
+    under the build directory."""
+    work = str(kernels.build_dir() / 'frontend')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    d = np.load(os.path.join(DATA, 'flagship_states.npz'))
+    inp = write_mech_dir(work, 'flagship',
+                         plausible_mechanism(53, 325, seed=42),
+                         state_rows(mech, d['y'], d['P']))
+    flag_states = os.path.join(work, 'flagship', 'states.npy')
+
+    # b. the sweep: the flagship first, then the USC-II class beside it
+    # (its calls resume the flagship's files: those sizes are done)
+    t0 = time.perf_counter()
+    runs, usc_runs = FRONT_RUNS, USC_RUNS
+    counts = sweep(work, runs, FRONT_REPEATS, device)
+    usc_text = plausible_mechanism(111, 784, seed=5)
+    usc_mech, _ = packed_from_text(usc_text)
+    y, T, P = random_states(usc_mech, 4096, seed=3)
+    write_mech_dir(work, 'usc', usc_text, state_rows(usc_mech, y, P))
+    usc_counts = sweep(work, usc_runs, FRONT_REPEATS, device)
+    for method, c in usc_counts.items():
+        counts[method] = {k: counts[method][k] + v for k, v in c.items()}
+    only = {'dd-sparse': ('stage_a', 'stage_b'), 'dd': ('dense_fused',),
+            'pallas': ('fused_f32',)}
+    for method, _ in runs:
+        want = only.get(method, ())
+        check(all(counts[method][k] > 0 for k in want) and
+              not any(v for k, v in counts[method].items() if k not in want),
+              'tester %s launched %s (want only %s)' % (
+                  method, counts[method], want))
+    for name, rr in (('flagship', runs), ('usc', usc_runs)):
+        for method, steps in rr:
+            fn = sweep_file(work, name, method)
+            got = check_step_file(fn, FRONT_REPEATS)
+            check(got == {n: FRONT_REPEATS for n in steps},
+                  '%s: lines per size %s' % (fn, got))
+    # the USC-II calls again: every size of both mechanisms' files is done
+    before = file_lines(work)
+    again = sweep(work, usc_runs, FRONT_REPEATS, device)
+    check(file_lines(work) == before, 'the resumed sweep appended lines')
+    check(not any(v for c in again.values() for v in c.values()),
+          'the resumed sweep launched kernels: %s' % again)
+    sweep_s = time.perf_counter() - t0
+    res = {'counts': counts, 'best': {}}
+    for name, rr in (('flagship', runs), ('usc', usc_runs)):
+        for method, _ in rr:
+            best = read_sweep(work, name, method)
+            res['best'][name, method] = best
+            print('phase 15b sweep %s %s: %s (%s)' % (
+                name, method, ', '.join(
+                    '%d odes %.3f ms = %.0f evals/s' % (n, ms, n / ms * 1e3)
+                    for n, ms in sorted(best.items())), card))
+    ratios = (
+        ('dd-sparse', 131072, main_res['total_ms'], 'phase 5 pass'),
+        ('pallas', 262144, f32['total_ms'], 'phase 13 pass'),
+        ('dd', 32768, integ['ms']['dense_fused'], 'phase 11 K4 alone'))
+    for method, n, ref, what in ratios:
+        ms = res['best']['flagship', method][n]
+        res['ratio_' + method] = ms / ref
+        print('  tester %s at B=%d: %.3f ms against %s %.3f ms: ratio %.3f '
+              '(%s)' % (method, n, ms, what, ref, ms / ref, card))
+    print('phase 15b sweep: %.1f s, launches %s, resumed call appended '
+          'nothing (%s)' % (sweep_s, counts, card))
+
+    # c. the functional tester on 64 flagship PaSR states
+    t0 = time.perf_counter()
+    err_path = os.path.join(work, 'error_arrays.npz')
+    rc = testers_main(['-i', inp, '-d', flag_states, '-n', '64',
+                       '--fail-above', repr(TOL_FUNCTIONAL), '-o', err_path,
+                       '--device', device.type])
+    e = np.load(err_path)
+    res['functional'] = {k: float(e[k].max()) for k in e.files}
+    print('phase 15c functional tester: 64 flagship PaSR states, worst '
+          'state (the JAX package on the CPU): %s; gate %.3e on '
+          'err_jac_thr_max, rc %d (%.1f s, %s)' % (
+              ', '.join('%s %.3e (%.3e)' % (k, res['functional'][k], v)
+                        for k, v in FUNCTIONAL_JAX_CPU.items()),
+              TOL_FUNCTIONAL, rc, time.perf_counter() - t0, card))
+    check(rc == 0, 'functional tester failed its gate')
+
+    # d. the CLI: archive, manifest, --validate CONP and CONV, -ic
+    t0 = time.perf_counter()
+    out = os.path.join(work, 'cli')
+    for extra in ([], ['--conv']):
+        rc = cli.main(['-i', inp, '-b', out, '--validate', '--states', '64',
+                       '--device', device.type] + extra)
+        check(rc == 0, 'CLI --validate %s failed' % extra)
+    names = mech.species_names
+    ic = '1200,10,%s=0.79,%s=0.2,%s=0.01' % (names[-1], names[0], names[1])
+    check(cli.main(['-i', inp, '-b', out, '-ic', ic]) == 0, 'CLI -ic failed')
+    s0 = np.load(os.path.join(out, 'initial_state.npy'))
+    check(s0.shape == (mech.n_species + 1,) and np.isfinite(s0).all(),
+          'initial_state.npy: %s' % (s0,))
+    print('phase 15d CLI: archive, manifest, --validate CONP and CONV on 64 '
+          'states (<= 1e-8), -ic %s -> initial_state.npy (%.1f s, %s)' % (
+              ic, time.perf_counter() - t0, card))
+
+    # e. a short PaSR run
+    phase_pasr(device, card)
+    return res
+
+
+def kernel_rows(errs, main_res, synth, big, integ, f32, front):
     """The kernels line: one row per ported TPU kernel.  ``launches`` is
     the count of the path at whose shape the kernel is timed;
-    ``launches_by_path`` every path's run."""
+    ``launches_by_path`` every path's run, the performance tester's
+    kernel methods included."""
     flag = {'flagship': main_res['counts'],
             'flagship_unfused': integ['counts_unfused'],
             'synth53': synth['counts'],
@@ -1885,6 +2193,9 @@ def kernel_rows(errs, main_res, synth, big, integ, f32):
                        for p in ('654', 'usc', '654_dense')}
             main_path = '654_dense' if name == 'big_cols_dense' else '654'
             b_ms, b_by = big['bounds'][name]
+        for method in ('dd-sparse', 'dd', 'pallas'):
+            by_path['perf_' + method.replace('-', '_')] = \
+                front['counts'][method][name]
         rows.append(dict(
             name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
             replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
@@ -1918,9 +2229,13 @@ def main():
     p_usc = packed_from_text(plausible_mechanism(111, 784, seed=5))[1]
     # batch of each phase-8 path; phase 6 checks the kernels at each
     sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
-    errs = phase_kernels_vs_plain((('flagship', packed, 16384, True),
-                                   ('synth53', p_syn53, 16384, False)),
-                                  device, card)
+    # phases 3, 9a and 12 also hold K1 + K2, K4 and K3 at the performance
+    # tester's largest batches (phase 15b), where their cases lack them
+    tester_mechs = {'flagship': packed, 'usc': p_usc}
+    errs = phase_kernels_vs_plain(with_tester_shapes(
+        (('flagship', packed, 16384, True),
+         ('synth53', p_syn53, 16384, False)), 'dd-sparse', tester_mechs,
+        (False,)), device, card)
     # K1's other cases: a ragged batch under the planner's tile and under
     # the global placement; USC-II (4 states a tile); the 654 class (one
     # state a tile) and, ragged, under the global placement
@@ -1952,13 +2267,14 @@ def main():
     # K4's cases: its timed shape; the 9/24 synth; a ragged batch under
     # the planner's tile and under the global placement; USC-II (3
     # states a tile, ragged); the 654 class (global slices)
-    errs.update(phase_dense_kernels((
+    errs.update(phase_dense_kernels(with_tester_shapes((
         ('flagship', packed, 32768, True, None),
         ('synth', p_syn, 16384, False, None),
         ('flagship', packed, 4099, False, None),
         ('flagship', packed, 4099, False, 'global'),
         ('usc', p_usc, 4096, False, None),
-        ('654', p654, 128, False, None)), device, card))
+        ('654', p654, 128, False, None)), 'dd', tester_mechs,
+        (False, None)), device, card))
     errs.update(phase_k2x(packed, device, 131072, card))
     phase_dense_golden((('flagship', packed), ('synth', p_syn)), device, card)
     seconds['9-10'] = time.perf_counter() - t0 - sum(seconds.values())
@@ -1968,13 +2284,14 @@ def main():
     # K3's: its timed shape; the 9/24 synth; a ragged batch; USC-II (6
     # states a tile, ragged); the 654 class (one state a tile) and, ragged,
     # under the global placement
-    errs.update(phase_f32_kernels((
+    errs.update(phase_f32_kernels(with_tester_shapes((
         ('flagship', packed, 262144, True, None),
         ('synth', p_syn, 16384, False, None),
         ('flagship', packed, 4099, False, None),
         ('usc', p_usc, 4096, False, None),
         ('654', p654, 128, False, None),
-        ('654', p654, 127, False, 'global')), device, card))
+        ('654', p654, 127, False, 'global')), 'pallas', tester_mechs,
+        (False, None)), device, card))
     f32 = phase_f32_main(packed, device, 262144, card)
     seconds['12-13'] = time.perf_counter() - t0 - sum(seconds.values())
     integ = phase_integrate(packed, device, {
@@ -1983,11 +2300,13 @@ def main():
     seconds['11'] = time.perf_counter() - t0 - sum(seconds.values())
     phase_bench(device, card)
     seconds['14'] = time.perf_counter() - t0 - sum(seconds.values())
+    front = phase_frontend(mech, device, card, main_res, f32, integ)
+    seconds['15'] = time.perf_counter() - t0 - sum(seconds.values())
     print('phase seconds (host clock): %s, total %.1f s' % (
         ', '.join('%s %.1f' % kv for kv in seconds.items()),
         time.perf_counter() - t0))
 
-    rows = kernel_rows(errs, main_res, synth, big, integ, f32)
+    rows = kernel_rows(errs, main_res, synth, big, integ, f32, front)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -36,9 +36,17 @@ Quick start::
 
     # stiff integration (ROS23 / RODAS3) with the K4 stage Jacobian
     res = pjt.integrate(packed, y_batch, P_batch, 1e-4, jacobian='dd')
+
+Command-line front ends (each takes ``--device cpu`` to run off the
+card): ``python -m pyjac_tpu_torch`` (pack, manifest, ``--validate``),
+``python -m pyjac_tpu_torch.testers`` (functional parity),
+``python -m pyjac_tpu_torch.testers.performance`` (the
+``num_odes,runtime_ms`` sweep through K1 + K2, K4 and K3) and
+``python -m pyjac_tpu_torch.testers.pasr`` (PaSR state generation).
 """
 
 from .core.chemkin import MechanismError, read_mech, read_thermo
+from .core.cti import read_mech_cti
 from .core.ir import Reaction, Species
 from .core.mech import Mechanism, get_species_mappings
 from .core.pack import PackedMechanism, pack, packed_from_arrays
@@ -50,6 +58,7 @@ from .ops.jacobian_big import BigJacobian
 from .ops.jacobian_dense import DenseJacobian
 from .ops.jacobian_f32 import F32Jacobian
 from .ops.jacobian_sparse import SparseJacobian
+from .ops.sparse import csr_structure, sparse_values, structural_sparsity
 from .ops.rates import (compact_pres_mod, compact_rev, eval_kc, eval_kf,
                         eval_rxn_rates, eval_spec_rates, get_rxn_pres_mod,
                         rates_of_progress, third_body_concentrations)
@@ -70,6 +79,7 @@ __all__ = [
     'get_rxn_pres_mod', 'get_species_mappings', 'ignition_delay',
     'integrate', 'jacobian_and_dydt',
     'jacobian_fwd', 'jacobian_vector_product', 'pack', 'packed_from_arrays',
-    'rates_of_progress', 'read_mech', 'read_thermo', 'split_state',
-    'third_body_concentrations',
+    'rates_of_progress', 'read_mech', 'read_mech_cti', 'read_thermo',
+    'split_state', 'third_body_concentrations',
+    'structural_sparsity', 'csr_structure', 'sparse_values',
 ]

@@ -111,16 +111,19 @@ class Mechanism:
     @classmethod
     def from_files(cls, mech_path: str, therm_path: Optional[str] = None,
                    last_spec: Optional[str] = None) -> "Mechanism":
-        """Load a Chemkin ``.inp/.dat`` mechanism.
-
-        The Cantera ``.cti`` / YAML / CTML parsers are not ported yet
-        (ROADMAP.md, queue 1: "parsers cti/ctyaml/ctml")."""
-        if mech_path.endswith(('.cti', '.yaml', '.yml', '.xml')):
-            raise NotImplementedError(
-                'Cantera mechanism formats (.cti/.yaml/.xml) are not '
-                'ported to pyjac_tpu_torch yet (ROADMAP.md queue 1: '
-                'parsers cti/ctyaml/ctml); use a Chemkin .inp file')
-        elems, specs, reacs = chemkin.read_mech(mech_path, therm_path)
+        """Load a Chemkin ``.inp/.dat``, Cantera ``.cti``, Cantera
+        YAML (``.yaml``), or Cantera CTML (``.xml``) mechanism."""
+        if mech_path.endswith('.cti'):
+            from .cti import read_mech_cti
+            elems, specs, reacs = read_mech_cti(mech_path)
+        elif mech_path.endswith(('.yaml', '.yml')):
+            from .ctyaml import read_mech_yaml
+            elems, specs, reacs = read_mech_yaml(mech_path)
+        elif mech_path.endswith('.xml'):
+            from .ctml import read_mech_ctml
+            elems, specs, reacs = read_mech_ctml(mech_path)
+        else:
+            elems, specs, reacs = chemkin.read_mech(mech_path, therm_path)
         return cls.from_ir(elems, specs, reacs, last_spec=last_spec,
                            source=os.path.basename(mech_path))
 

@@ -113,12 +113,58 @@ def test_packed_from_arrays_rejects_bad_fields(mechs):
         packed_from_arrays(f, mechs['flagship'][1])
 
 
-@pytest.mark.parametrize('ext', ['.cti', '.yaml', '.xml'])
-def test_cantera_formats_not_ported(tmp_path, ext):
-    path = tmp_path / ('m' + ext)
-    path.write_text('')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Mechanism.from_files(str(path))
+# the port's copies of numpy modules of the JAX package: (port file, JAX
+# file, how the port's text relates to the original's).  'same': equal;
+# 'prefix': the original followed by port-only additions; 'until X': the
+# original up to X (what follows is not ported); 'from X': equal from X on
+# (what precedes it, the build step, is the port's own)
+COPIES = [
+    ('core/chemkin.py', 'core/chemkin.py', 'same'),
+    ('core/constants.py', 'core/constants.py', 'same'),
+    ('core/ir.py', 'core/ir.py', 'same'),
+    ('core/mech.py', 'core/mech.py', 'same'),
+    ('core/cti.py', 'core/cti.py', 'same'),
+    ('core/ctyaml.py', 'core/ctyaml.py', 'same'),
+    ('core/ctml.py', 'core/ctml.py', 'same'),
+    ('core/pack.py', 'core/pack.py', 'prefix'),
+    ('testers/synthetic.py', 'testers/synthetic.py', 'prefix'),
+    ('testers/numpy_oracle.py', 'testers/numpy_oracle.py', 'same'),
+    ('utils.py', 'utils.py', 'until \n\ndef check_dd_range'),
+    ('runtime/__init__.py', 'runtime/__init__.py', 'same'),
+    ('runtime/stateio.cpp', 'runtime/stateio.cpp', 'same'),
+    ('runtime/stateio.py', 'runtime/stateio.py', 'from def _get_lib():'),
+    ('ops/sparse.py', 'ops/sparse.py', 'until def sparse_values('),
+]
+
+
+@pytest.mark.parametrize('port,orig,how', COPIES,
+                         ids=[c[0] for c in COPIES])
+def test_copied_source_matches_jax(port, orig, how):
+    """Each copied module is its original's text, apart from what the
+    port adds or leaves out; every import in them is relative, so no
+    import path differs."""
+    a = (PKG / port).read_text()
+    b = (REPO / 'pyjac_tpu' / orig).read_text()
+    if how == 'same':
+        assert a == b
+    elif how == 'prefix':
+        assert a.startswith(b) and len(a) > len(b)
+    else:
+        kind, mark = how.split(' ', 1)
+        assert mark in b
+        if kind == 'until':
+            head = b[:b.index(mark)]
+            if port == 'ops/sparse.py':
+                # the docstring names the port's own jvp
+                head = head.replace(
+                    ':func:`pyjac_tpu.ops.jacobian.jacobian_vector_product` '
+                    '(a jvp, no\npattern needed)',
+                    ':func:`pyjac_tpu_torch.ops.jacobian.'
+                    'jacobian_vector_product` (a jvp,\nno pattern needed)')
+            assert a.startswith(head)
+        else:
+            assert mark in a and a[a.index(mark):] == b[b.index(mark):]
+    assert not re.search(r'^\s*(import|from)\s+pyjac_tpu\b', a, re.M)
 
 
 def test_package_sources_import_no_jax():
@@ -145,8 +191,13 @@ def test_import_loads_no_jax():
 
 PORT_MODULES = [
     'pyjac_tpu_torch',
+    'pyjac_tpu_torch.__main__',
+    'pyjac_tpu_torch.cli',
     'pyjac_tpu_torch.core.chemkin',
     'pyjac_tpu_torch.core.constants',
+    'pyjac_tpu_torch.core.ctml',
+    'pyjac_tpu_torch.core.cti',
+    'pyjac_tpu_torch.core.ctyaml',
     'pyjac_tpu_torch.core.ir',
     'pyjac_tpu_torch.core.mech',
     'pyjac_tpu_torch.core.pack',
@@ -161,9 +212,18 @@ PORT_MODULES = [
     'pyjac_tpu_torch.ops.jacobian_sparse',
     'pyjac_tpu_torch.ops.kernels',
     'pyjac_tpu_torch.ops.rates',
+    'pyjac_tpu_torch.ops.sparse',
     'pyjac_tpu_torch.ops.thermo',
     'pyjac_tpu_torch.parallel.batch',
+    'pyjac_tpu_torch.runtime',
+    'pyjac_tpu_torch.runtime.stateio',
+    'pyjac_tpu_torch.testers.__main__',
+    'pyjac_tpu_torch.testers.functional',
+    'pyjac_tpu_torch.testers.numpy_oracle',
+    'pyjac_tpu_torch.testers.pasr',
+    'pyjac_tpu_torch.testers.performance',
     'pyjac_tpu_torch.testers.synthetic',
+    'pyjac_tpu_torch.utils',
 ]
 
 
