@@ -8,9 +8,11 @@ pipeline ``BigJacobian`` (kernels K5, K6, K7) at the 654-species /
 ``integrate(jacobian='dd')`` with the dense fused kernel K4, the float32
 path ``F32Jacobian`` (kernel K3) and the port's bench
 (``python -m pyjac_tpu_torch.bench``, with the 1M-state
-``BatchEvaluator`` cell) and the user front end (the performance and
-functional testers, the CLI, the PaSR generator) — on one CUDA card, in
-phases; any failure exits non-zero at once:
+``BatchEvaluator`` cell), the user front end (the performance and
+functional testers, the CLI, the PaSR generator), the exported library
+(``libgen``: K1 + K2 and K4 as registered operators) and the batch mesh
+(``parallel.mesh``) — on one CUDA card, in phases; any failure exits
+non-zero at once:
 
 1. device: a CUDA card is required; prints its ``nvidia-smi`` name and
    power limit;
@@ -24,8 +26,8 @@ phases; any failure exits non-zero at once:
    states of the all-features synth at the flagship's width (53 species
    / 326 reactions: PLOG, Chebyshev, SRI, chemically activated,
    species-specific pdep, fractional nu); then the performance tester's
-   ``dd-sparse`` batches (phase 15b): the flagship at B = 131072 and
-   USC-II at B = 32768;
+   ``dd-sparse`` batches (phase 15b): the flagship at B = 131072,
+   USC-II at B = 32768 and the 654 class at B = 1024;
 3b. K1 against ``stage_a_reference`` at phase 3's tolerances, CONP and
    CONV, on the flagship at B = 4099 (a ragged last tile) under the
    planner's tile and under the global placement, the USC-II class at
@@ -71,7 +73,7 @@ phases; any failure exits non-zero at once:
    B = 4096 (3 states a tile, ragged) and the 654 class at B = 128 (its
    rows exceed shared memory: global slices), and the performance
    tester's ``dd`` batches (the flagship at B = 131072, USC-II at
-   B = 32768), CONP and CONV; K2x against
+   B = 32768, the 654 class at B = 1024), CONP and CONV; K2x against
    ``stage_b_reference`` on the gathered operand at B = 131072;
 10. dense golden: both goldens through ``DenseJacobian`` and the
     flagship's through ``SparseJacobian(fuse_gather=False)``;
@@ -109,8 +111,9 @@ phases; any failure exits non-zero at once:
     (``testers.performance.performance_tester``) sweeps ``dd-sparse``
     (K1 + K2), ``dd`` (K4) and ``pallas`` (K3) up to B = 131072
     (``pallas`` 262144) and ``ajac`` / ``ad`` / ``fd`` (plain torch) at
-    the flagship, then ``dd-sparse`` and ``dd`` at the USC-II class, each
-    call with the launch counters set to 0 just before and read just
+    the flagship, then ``dd-sparse`` and ``dd`` at the USC-II class, and
+    in a work directory of its own at the 654 class (B = 512, 1024),
+    each call with the launch counters set to 0 just before and read just
     after (each method launches its kernels and no other); every output
     file holds its repeats per size, a second call appends nothing, and
     the ``dd-sparse`` / ``pallas`` / ``dd`` readings are printed beside
@@ -121,6 +124,25 @@ phases; any failure exits non-zero at once:
     states, gated at twice the JAX package's reading; the CLI
     (``python -m pyjac_tpu_torch``) with ``--validate`` CONP and CONV and
     ``-ic``; a short PaSR run through the port's integrator.
+16. the exported library: ``libgen.generate_library`` exports the
+    flagship's kernel entries ``jacobian_dd_sparse`` (K1 + K2) and
+    ``jacobian_dd`` (K4), ``dydt`` and ``jacobian_and_dydt`` (CONP) and
+    ``rates`` (CONV) under the build directory; a fresh process that
+    loads them with ``load_library`` alone (parsing or packing a
+    mechanism raises there) runs ``jacobian_dd_sparse`` at B = 4099 and
+    131072 and ``jacobian_dd`` at 4099 and 32768, each from one
+    artifact: one call launches its kernels once each through the
+    registered operators, its outputs equal the live module's bit for
+    bit (integer fingerprints of their bits), its pass is at most 1.10x
+    the live module's; the plain artifacts agree with the live functions
+    at 1e-12 of scale;
+17. the batch mesh: an NCCL group of one process
+    (``initialize_distributed``, a ``file://`` rendezvous under the build
+    directory); ``sharded_step_dd`` and ``sharded_jacobian_dd_xla`` (K4)
+    at B = 32768, ``sharded_jacobian_dd_xla_sparse`` (K1 + K2) at
+    B = 131072 and the plain ``sharded_step`` at B = 4096, each equal to
+    the unsharded call bit for bit, its norm the JAX package's,
+    max|J| + max|dy/dt| (one shard), one launch of each of its kernels.
 
 Phases 12-13 run between 10 and 11: a ``torch.profiler`` session after
 phase 11's traced integrate call records no kernels on the card.
@@ -149,9 +171,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from pyjac_tpu_torch import bench, cli  # noqa: E402
+from pyjac_tpu_torch.libgen import generate_library  # noqa: E402
+from pyjac_tpu_torch.ops.dydt import dydt  # noqa: E402
+from pyjac_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from pyjac_tpu_torch.profiling import (  # noqa: E402
+    F32_FLOP_S, F64_FLOP_S, roofline)
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
 from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate  # noqa: E402
-from pyjac_tpu_torch.ops.jacobian import reaction_parts  # noqa: E402
+from pyjac_tpu_torch.ops.jacobian import (  # noqa: E402
+    jacobian_and_dydt, reaction_parts)
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
     ROLE_NAMES, BigJacobian, cols_dense_reference, cols_sparse_reference,
@@ -267,6 +295,9 @@ FRONT_RUNS = (('dd-sparse', [4096, 32768, 131072]),
               ('pallas', [4096, 32768, 131072, 262144]),
               ('ajac', [4096, 32768]), ('ad', [4096]), ('fd', [4096]))
 USC_RUNS = (('dd-sparse', [4096, 32768]), ('dd', [4096, 32768]))
+# ... and at the 654 class, in a work directory of its own (a sweep takes
+# every mechanism folder of its directory), 1024 random_states(seed=3)
+BIG654_RUNS = (('dd-sparse', [512, 1024]), ('dd', [512, 1024]))
 FRONT_REPEATS = 2
 # the JAX package's functional tester (run_functional_test, CPU, f64) on
 # the 64 flagship PaSR states `-n 64` selects, the worst state of each
@@ -293,16 +324,6 @@ PASR_TAU_RES = 1e-5
 PASR_P_ATM = 10.0
 PASR_RELAX = (1e-5, 1e-6)
 PASR_TOLS = (1e-3, 1e-7, 3000)
-
-# H100 SXM peaks (NVIDIA H100 SXM data sheet), for each kernel's bound:
-# HBM3 bandwidth; FP64 outside the tensor cores (no kernel here issues
-# DMMA: the 67 TFLOP/s FP64 tensor-core rate does not apply); FP32 (K3)
-HBM_BYTES_S = 3.35e12
-F64_FLOP_S = 34e12
-F32_FLOP_S = 67e12
-# operations one exp / log / log10 / pow counts for in a bound: a
-# polynomial of degree ~10 after range reduction, in f64 and f32 alike
-TRANSCENDENTAL_OPS = 20
 
 # float64 SASS: D* arithmetic / compares and any F64 or 64H operand form
 F64_SASS_OP = re.compile(r'^(D(ADD|MUL|FMA|SETP|MNMX|SET|RSQ)\b|\S*F64|'
@@ -425,9 +446,11 @@ def case_states(name, packed, B, device):
 def tester_shapes(method):
     """[(mechanism, B)]: the performance tester's largest batch of
     ``method`` at each mechanism phase 15b sweeps (``FRONT_RUNS`` at the
-    flagship, ``USC_RUNS`` at USC-II)."""
+    flagship, ``USC_RUNS`` at USC-II, ``BIG654_RUNS`` at the 654
+    class)."""
     return [(name, max(steps))
-            for name, runs in (('flagship', FRONT_RUNS), ('usc', USC_RUNS))
+            for name, runs in (('flagship', FRONT_RUNS), ('usc', USC_RUNS),
+                               ('654', BIG654_RUNS))
             for m, steps in runs if m == method]
 
 
@@ -668,33 +691,25 @@ def phase_main(sj, packed, device, B, card):
               'ms (B=%d, %s)' % (k, ms[k], ms[k + '_plain'],
                                  '%.3f' % ms[k + '_lib'] if k + '_lib' in ms
                                  else 'none', B, card))
-    J, N = sj.J, sj.N
-    bounds = {
-        'stage_a': stage_a_bound(sj, y_t, P_t, a),
-        'stage_b': bound(nbytes(a['src'], a['post'], sj.col_ptr, sj.col_src,
-                                sj.col_coef, sj.inv_mw) + 8 * J * N * B,
-                         2 * len(sj.col_coef) * B + 8 * J * N * B)}
+    bounds = {k: bound_of(sj, B, k) for k in ('stage_a', 'stage_b')}
     return dict(counts=counts, ms=ms, total_ms=total_ms, bounds=bounds)
 
 
-def stage_a_bound(sj, y_t, P_t, out):
-    """K1's bound: the states and the tables it reads (K5's ``kp_``, the
-    closure's ``kf_`` and ``ka_eff_val``) read once, its outputs ``out``
-    written once."""
-    tabs = [t for k, t in sj._buffers.items()
-            if k.startswith(('kp_', 'kf_', 'ka_'))]
-    return bound(nbytes(y_t, P_t, *tabs, *out.values()))
+def bound_of(mod, B, kernel):
+    """(least ms, 'bytes' or 'operations', operations) of ``kernel`` in
+    ``mod`` on B states (``profiling.roofline``)."""
+    row = roofline(mod, B)[kernel]
+    return row['bound_ms'], row['bound_by'], row['operations']
 
 
-def stage_a_alone(sj, y_t, P_t, a, what, card):
-    """K1 alone on ``sj``'s states beside its plain version and its bound
-    (``a``: K1's outputs there): {'ms': {stage_a, stage_a_plain},
-    'bound'}."""
+def stage_a_alone(sj, y_t, P_t, what, card):
+    """K1 alone on ``sj``'s states beside its plain version and its
+    bound: {'ms': {stage_a, stage_a_plain}, 'bound'}."""
     ms = {'stage_a': best_ms(lambda: sj.stage_a(y_t, P_t)),
           'stage_a_plain': best_ms(lambda: stage_a_reference(
               sj.packed, y_t, P_t, sj.conp), reps=2)}
-    b = stage_a_bound(sj, y_t, P_t, a)
     B = y_t.shape[-1]
+    b = bound_of(sj, B, 'stage_a')
     print('  stage_a (%s): kernel %.3f ms, plain version %.3f ms, library '
           'call none, bound %.3f ms (%s) (B=%d, %s; %s)' % (
               what, ms['stage_a'], ms['stage_a_plain'], b[0], b[1], B,
@@ -707,9 +722,8 @@ def phase_stage_a_usc(packed, device, B, card):
     version and its bound, at the USC-II cell's B."""
     y_t, P_t = big_states(packed, B, device)
     sj = SparseJacobian(packed, device=device)
-    a = sj.stage_a(y_t, P_t)
-    stage_a_alone(sj, y_t, P_t, a, 'USC-II %d/%d' % (sj.N, sj.R), card)
-    del sj, y_t, P_t, a
+    stage_a_alone(sj, y_t, P_t, 'USC-II %d/%d' % (sj.N, sj.R), card)
+    del sj, y_t, P_t
     torch.cuda.empty_cache()
 
 
@@ -749,7 +763,7 @@ def phase_synth_main(packed, device, B, card):
                  stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, a['src'],
                                    a['post'], True), a)
     torch.cuda.empty_cache()
-    res.update(stage_a_alone(sj, y_t, P_t, a, 'synth', card))
+    res.update(stage_a_alone(sj, y_t, P_t, 'synth', card))
     del a
     # J and dy/dt against K4 on a slice
     Bc = SYNTH_CROSS_B
@@ -792,19 +806,6 @@ def phase_synth_main(packed, device, B, card):
 # ---------------------------------------------------------------------------
 # the large-mechanism pipeline
 # ---------------------------------------------------------------------------
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(n_bytes, n_ops=0.0, flop_s=F64_FLOP_S):
-    """(least ms, 'bytes' or 'operations') for moving ``n_bytes`` through
-    HBM once and doing ``n_ops`` operations at ``flop_s`` (f64 unless
-    said)."""
-    tb = n_bytes / HBM_BYTES_S * 1e3
-    to = n_ops / flop_s * 1e3
-    return (tb, 'bytes') if tb >= to else (to, 'operations')
-
 
 def own_density(packed, y_t, P_t):
     """Each state's own density (CONV takes density, so the rates stay
@@ -1081,27 +1082,6 @@ def full_J(cols, col0):
     return torch.cat([col0[None], cols], 0)
 
 
-def dense_bound(bd, roles, post, B):
-    """K7's bound from this run's tables: its inputs (the role rows, the
-    post rows and the tables it reads) read once and its output written
-    once, and the nonzero products the function needs (per column, the
-    reactions whose operand is nonzero there times the nonzero nu_net
-    entries of each).  Also returns the floor of the dense contraction
-    over all R that the TPU kernel does, 2 J N R B operations."""
-    td = bd.tab('kd_')
-    J, N, R = bd.J, bd.N, bd.R
-    cols = torch.arange(J, device=roles.device)
-    part = ((td['spf'][:, :, None] == cols).any(1) |
-            (td['spp'][:, :, None] == cols).any(1) |
-            (td['eff'][:, :J] != 0) | (td['pd'][:, None] == cols))
-    nnz = (td['nu_net'] != 0).sum(1)
-    products = float((part.double() * nnz[:, None]).sum()) * B
-    read = [v for k, v in td.items() if k != 'nu_net']
-    b = bound(nbytes(roles[:bd.Sf + bd.Sp], roles[-2:], post, *read,
-                     bd.inv_mw) + 8 * J * N * B, 2.0 * products)
-    return b, 2.0 * products, bound(0, 2.0 * J * N * R * B)[0]
-
-
 def phase_big_main(mechs, sizes, device, card):
     """Phase 8: the large-mechanism paths at full width, ``sizes`` the
     batch of each path."""
@@ -1163,13 +1143,8 @@ def phase_big_main(mechs, sizes, device, card):
     print('  stage split, CUDA events over 10 queued calls each (B=%d): '
           'pre-stage + K5 + finish + assembly %.3f ms, column kernel K6 '
           '%.3f ms (%s)' % (B, k['front'], k['big_cols_sparse'], card))
-    tabs = [v for n, v in bj._buffers.items() if n.startswith('kp_')]
-    res['bounds'] = {
-        'big_parts': bound(nbytes(st['rows'], *tabs, roles)),
-        'big_cols_sparse': bound(
-            nbytes(p1c, post, bj.ks_ptr, bj.ks_src, bj.ks_coef, bj.inv_mw) +
-            8 * bj.J * bj.N * B,
-            2 * bj.ks_coef.numel() * B + 8 * bj.J * bj.N * B)}
+    res['bounds'] = {k: bound_of(bj, B, k)
+                     for k in ('big_parts', 'big_cols_sparse')}
     del st, roles, post, p1c, p1c3
     torch.cuda.empty_cache()
 
@@ -1228,8 +1203,9 @@ def phase_big_main(mechs, sizes, device, card):
             j)
     nuT = td['nu_net'].T.contiguous()
     k['big_cols_dense_lib'] = best_ms(lambda: torch.matmul(nuT, P_all))
-    res['bounds']['big_cols_dense'], ops7, dense7 = dense_bound(
-        bd, roles, post, Bd)
+    res['bounds']['big_cols_dense'] = bound_of(bd, Bd, 'big_cols_dense')
+    ops7 = res['bounds']['big_cols_dense'][2]
+    dense7 = 2.0 * J_ * bd.N * R_ * Bd / F64_FLOP_S * 1e3
     print('  K7 bound counts %.4e nonzero-product operations (%d CSR '
           'entries); the dense contraction of the TPU kernel (2 J N R B = '
           '%.4e) has a floor of %.3f ms at the f64 tensor-core peak' % (
@@ -1332,35 +1308,6 @@ def dense_t_gross(packed, y_t, param, conp):
     mags = dense_magnitudes(td, roles, post, Sf, Sp, last, q_gross)
     inv_mw = torch.as_tensor(packed.inv_mw, dtype=F64, device=device)
     return t_row_gross(mags[0], inv_mw, post, conp, mags=mags)
-
-
-def dense_ops(mod, B):
-    """The operations K4 / K3 (``mod``: a ``DenseJacobian`` or an
-    ``F32Jacobian``) needs for B states, counted from its tables: per
-    state the thermo (ln T, 50 per species), per reaction 40, 4 per entry
-    of its Kc sum and the exp / log / pow calls its categories make
-    (:data:`TRANSCENDENTAL_OPS` each: kf; Kc's exp when reversible; the
-    low- or high-pressure rate and log10 Pr under falloff; Troe's 4 (5
-    with T2); SRI's 7 (2 exp, 2 pow at 2 each, a log); PLOG's and
-    Chebyshev's 2; 4 a slot with fractional nu), the contractions (8 per
-    nu_net entry: four sums of products), the closure (12 per species),
-    the column operand's products (2 per CSR entry) and `_post_col` (8
-    per J entry)."""
-    fl = mod.kp_flags.cpu().numpy()
-    plog = (mod.kp_plog_pos >= 0).cpu().numpy()
-    cheb = (mod.kp_cheb_pos >= 0).cpu().numpy()
-    p = mod.packed
-    N, R, J = mod.N, mod.R, mod.N - 1
-    calls = (1 + (fl & 1 != 0) + 2 * (fl & (4 | 8) != 0) +
-             (fl & 16 != 0) * (4 + (fl & 64 != 0)) + 7 * (fl & 32 != 0) +
-             2 * plog + 2 * cheb).sum()
-    if p.has_frac_nu:
-        calls += 4 * R * (p.reac_sp.shape[1] + p.prod_sp.shape[1])
-    nnz = int((np.asarray(p.nu_net) != 0).sum())
-    per_state = (TRANSCENDENTAL_OPS * (1 + float(calls)) + 50.0 * N +
-                 40.0 * R + 4.0 * int(mod.kp_nu_ptr[-1]) + 8.0 * nnz +
-                 12.0 * N + 2.0 * mod.kf_col_coef.numel() + 8.0 * J * N)
-    return per_state * B
 
 
 def k2x_vs_plain(sx, a):
@@ -1540,17 +1487,15 @@ def phase_integrate(packed, device, sizes, card):
     res['ms']['dense_fused'] = per_call_ms(lambda: dj.call_tr(y_t, P_t))
     res['ms']['dense_fused_plain'] = best_ms(
         lambda: dense_reference(packed, y_t, P_t, True), reps=2)
-    Jt, f = dj.call_tr(y_t, P_t)
-    tabs = [v for k, v in dj._buffers.items() if k.startswith(('kp_', 'kf_'))]
-    ops = dense_ops(dj, B)
-    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs), ops)
+    res['bound'] = bound_of(dj, B, 'dense_fused')
+    ops = res['bound'][2]
     print('  dense_fused: kernel %.3f ms, plain version %.3f ms, library call '
           'none, bound %.3f ms (%s; %.4e operations: %.3f ms at %.0e/s) '
           '(flagship, B=%d, %s, %s)' % (
               res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
               res['bound'][0], res['bound'][1], ops, ops / F64_FLOP_S * 1e3,
               F64_FLOP_S, B, plan_tag(card_plan(dj, F64, B)), card))
-    del Jt, f, dj, out
+    del dj, out
     torch.cuda.empty_cache()
 
     # 'dd' against 'xla' on slices: the PaSR states, both methods, and the
@@ -1603,10 +1548,7 @@ def phase_integrate(packed, device, sizes, card):
         reps=2)
     k['stage_b_x_lib'] = best_ms(
         lambda: torch.bmm(sx.nuc, p1.view(sx.J, sx.Rmax, Bx)))
-    res['bound_x'] = bound(nbytes(p1, a['post'], sx.kx_ptr, sx.kx_src,
-                                  sx.kx_coef, sx.inv_mw) +
-                           8 * sx.J * sx.N * Bx,
-                           2 * sx.kx_coef.numel() * Bx + 8 * sx.J * sx.N * Bx)
+    res['bound_x'] = bound_of(sx, Bx, 'stage_b_x')
     print('  stage_b_x (K2x): kernel %.3f ms, plain version %.3f ms, library '
           'call %.3f ms, bound %.3f ms (%s); the gather alone %.3f ms '
           '(B=%d, %s)' % (k['stage_b_x'], k['stage_b_x_plain'],
@@ -1899,10 +1841,8 @@ def phase_f32_main(packed, device, B, card):
     res['ms']['fused_f32'] = per_call_ms(lambda: fj.call_tr(y_t, P_t), n=5)
     res['ms']['fused_f32_plain'] = best_ms(
         lambda: f32_reference(packed, y_t, P_t, True), reps=2)
-    Jt, f = fj.call_tr(y_t, P_t)
-    tabs = [v for k, v in fj._buffers.items() if k.startswith(('kp_', 'kf_'))]
-    ops = dense_ops(fj, B)
-    res['bound'] = bound(nbytes(y_t, P_t, Jt, f, *tabs), ops, F32_FLOP_S)
+    res['bound'] = bound_of(fj, B, 'fused_f32')
+    ops = res['bound'][2]
     print('  fused_f32: kernel %.3f ms, plain version %.3f ms, library call '
           'none, bound %.3f ms (%s; %.4e operations: %.3f ms at %.0e/s) '
           '(flagship, B=%d, %s, %s)' % (
@@ -1910,7 +1850,7 @@ def phase_f32_main(packed, device, B, card):
               res['bound'][0], res['bound'][1], ops, ops / F32_FLOP_S * 1e3,
               F32_FLOP_S, B, plan_tag(card_plan(fj, torch.float32, B)),
               card))
-    del Jt, f, fj, y_t, P_t
+    del fj, y_t, P_t
     torch.cuda.empty_cache()
     return res
 
@@ -2094,10 +2034,35 @@ def phase_frontend(mech, device, card, main_res, f32, integ):
     check(not any(v for c in again.values() for v in c.values()),
           'the resumed sweep launched kernels: %s' % again)
     sweep_s = time.perf_counter() - t0
+    # the 654 class in its own work directory
+    t0 = time.perf_counter()
+    work654 = str(kernels.build_dir() / 'frontend654')
+    shutil.rmtree(work654, ignore_errors=True)
+    os.makedirs(work654)
+    text654 = plausible_mechanism(654, 2716, seed=5)
+    mech654, _ = packed_from_text(text654)
+    y, _, P = random_states(mech654, 1024, seed=3)
+    write_mech_dir(work654, 'big654', text654, state_rows(mech654, y, P))
+    counts654 = sweep(work654, BIG654_RUNS, FRONT_REPEATS, device)
+    for method, steps in BIG654_RUNS:
+        want = only[method]
+        check(all(counts654[method][k] > 0 for k in want) and
+              not any(v for k, v in counts654[method].items()
+                      if k not in want),
+              'tester %s at the 654 class launched %s (want only %s)' % (
+                  method, counts654[method], want))
+        fn = sweep_file(work654, 'big654', method)
+        got = check_step_file(fn, FRONT_REPEATS)
+        check(got == {n: FRONT_REPEATS for n in steps},
+              '%s: lines per size %s' % (fn, got))
+        counts[method] = {k: counts[method][k] + v
+                          for k, v in counts654[method].items()}
+    sweep654_s = time.perf_counter() - t0
     res = {'counts': counts, 'best': {}}
-    for name, rr in (('flagship', runs), ('usc', usc_runs)):
+    for name, rr, wd in (('flagship', runs, work), ('usc', usc_runs, work),
+                         ('big654', BIG654_RUNS, work654)):
         for method, _ in rr:
-            best = read_sweep(work, name, method)
+            best = read_sweep(wd, name, method)
             res['best'][name, method] = best
             print('phase 15b sweep %s %s: %s (%s)' % (
                 name, method, ', '.join(
@@ -2112,8 +2077,9 @@ def phase_frontend(mech, device, card, main_res, f32, integ):
         res['ratio_' + method] = ms / ref
         print('  tester %s at B=%d: %.3f ms against %s %.3f ms: ratio %.3f '
               '(%s)' % (method, n, ms, what, ref, ms / ref, card))
-    print('phase 15b sweep: %.1f s, launches %s, resumed call appended '
-          'nothing (%s)' % (sweep_s, counts, card))
+    print('phase 15b sweep: %.1f s (the 654 class %.1f s), launches %s, '
+          'resumed call appended nothing (%s)' % (sweep_s, sweep654_s, counts,
+                                                 card))
 
     # c. the functional tester on 64 flagship PaSR states
     t0 = time.perf_counter()
@@ -2153,11 +2119,288 @@ def phase_frontend(mech, device, card, main_res, f32, integ):
     return res
 
 
-def kernel_rows(errs, main_res, synth, big, integ, f32, front):
+# ---------------------------------------------------------------------------
+# the exported library and the batch mesh
+# ---------------------------------------------------------------------------
+
+# phase 16: each kernel entry at its batch sizes, all from one artifact,
+# each size with the queued calls its pass time is taken over (a run of
+# ~40 ms: at B = 4099 one pass takes ~0.4 ms, and 10 queued calls read
+# 0.885-1.068 of the live module's in one card call); the plain kernels
+# at LIBGEN_PLAIN_B; an artifact's pass at most this many times the live
+# module's
+LIBGEN_RUNS = (('jacobian_dd_sparse', ((4099, 100), (131072, 10))),
+               ('jacobian_dd', ((4099, 100), (32768, 10))))
+LIBGEN_PLAIN_B = 4099
+LIBGEN_SLOWDOWN = 1.10
+# the kernels each entry's call launches, once each
+LIBGEN_KERNELS = {'jacobian_dd_sparse': ('stage_a', 'stage_b'),
+                  'jacobian_dd': ('dense_fused',)}
+# the plain artifacts against the live functions: the
+# tests/test_libgen.py bar, 1e-12 of each output's largest entry
+TOL_LIBGEN_PLAIN = 1e-12
+
+# the process phase 16 loads the library in: it imports the port's
+# libgen and launch counters alone, refuses to parse or pack a mechanism,
+# and reads the states from the repository's data.  Arguments: the CONP
+# and CONV library directories, the states' .npz, the densities' .npy,
+# the output directory, LIBGEN_RUNS as JSON, LIBGEN_PLAIN_B.  Prints one
+# JSON line: per entry and batch the launches of one call, the outputs'
+# fingerprints and the pass time; the launches of the whole run.
+LIBGEN_CHILD = r"""
+import json, sys
+import numpy as np, torch
+import pyjac_tpu_torch.core.mech as mm, pyjac_tpu_torch.core.pack as pk
+
+
+def refuse(*a, **k):
+    raise RuntimeError('the library process built a mechanism')
+
+
+pk.pack = pk.packed_from_arrays = mm.Mechanism.from_files = refuse
+from pyjac_tpu_torch.libgen import load_library
+from pyjac_tpu_torch.ops import kernels
+
+conp_dir, conv_dir, data, rho_path, out_dir, runs, plain_B = sys.argv[1:8]
+lib, conv = load_library(conp_dir), load_library(conv_dir)
+d = np.load(data)
+dev = torch.device('cuda', 0)
+
+
+def states(B):
+    reps = -(-B // len(d['y']))
+    y = np.tile(d['y'], (reps, 1))[:B]
+    P = np.tile(d['P'], reps)[:B]
+    return (torch.as_tensor(y.T.copy(), device=dev),
+            torch.as_tensor(P[None].copy(), device=dev))
+
+
+def fingerprint(t):
+    b = t.contiguous().view(torch.int64).reshape(-1)
+    w = torch.arange(1, 2 * b.numel(), 2, device=b.device)
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def per_call_ms(fn, n=10):
+    for _ in range(n):
+        fn()
+    best = float('inf')
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e) / n)
+    return best
+
+
+res, total = {}, {}
+for name, sizes in json.loads(runs):
+    for B, n in sizes:
+        y_t, P_t = states(B)
+        kernels.reset_launches()
+        out = lib[name](y_t, P_t)
+        torch.cuda.synchronize()
+        one = dict(kernels.launches)
+        fps = [fingerprint(x) for x in out]
+        del out
+        ms = per_call_ms(lambda: [torch.sum(x) for x in lib[name](y_t, P_t)],
+                         n)
+        for k, v in kernels.launches.items():
+            total[k] = total.get(k, 0) + v
+        res['%s/%d' % (name, B)] = dict(launches=one, fp=fps, ms=ms)
+        del y_t, P_t
+        torch.cuda.empty_cache()
+y_t, P_t = states(int(plain_B))
+y, P = y_t.T.contiguous(), P_t[0].contiguous()
+rho = torch.as_tensor(np.load(rho_path), device=dev)
+J, f = lib['jacobian_and_dydt'](P, y)
+fwd, rev, pm = conv['rates'](rho, y)
+np.savez(out_dir + '/plain.npz', dydt=lib['dydt'](P, y).cpu().numpy(),
+         J=J.cpu().numpy(), f=f.cpu().numpy(), fwd=fwd.cpu().numpy(),
+         rev=rev.cpu().numpy(), pm=pm.cpu().numpy())
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pyjac_tpu')]
+if bad:
+    raise RuntimeError('the library process imported %s' % bad[:5])
+print(json.dumps({'runs': res, 'launches': total}))
+"""
+
+
+def fingerprint(t):
+    """Two integer sums of ``t``'s bits (the second weighted by odd
+    position numbers, so a change in any one element changes it): equal
+    for equal tensors, compared across processes in place of copying
+    GBs to the host (the child's own copy is in ``LIBGEN_CHILD``)."""
+    b = t.contiguous().view(torch.int64).reshape(-1)
+    w = torch.arange(1, 2 * b.numel(), 2, device=b.device)
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def phase_libgen(packed, device, card):
+    """Phase 16: ``libgen`` on the card.  Exports the flagship's kernel
+    entries ``jacobian_dd_sparse`` (K1 + K2) and ``jacobian_dd`` (K4)
+    and its ``dydt`` / ``jacobian_and_dydt`` (CONP) and ``rates`` (CONV)
+    under the build directory; a fresh process loads them with
+    ``load_library`` alone and runs each entry at ``LIBGEN_RUNS``' sizes
+    from one artifact: one call launches its kernels once each, its
+    outputs equal the live module's bit for bit, and its pass (the call
+    and a sum of every output; ``n`` queued calls of ``LIBGEN_RUNS``,
+    best of 3, CUDA events) is at most ``LIBGEN_SLOWDOWN`` times the live
+    module's; the plain artifacts agree with the live functions at
+    ``TOL_LIBGEN_PLAIN``."""
+    t0 = time.perf_counter()
+    work = kernels.build_dir() / 'libgen'
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    conp_dir, conv_dir = str(work / 'conp'), str(work / 'conv')
+    generate_library(packed, conp_dir, ('jacobian_dd_sparse', 'jacobian_dd',
+                                        'dydt', 'jacobian_and_dydt'),
+                     conp=True, device=device)
+    generate_library(packed, conv_dir, ('rates',), conp=False, device=device)
+    gen_s = time.perf_counter() - t0
+    mods = {'jacobian_dd_sparse': SparseJacobian(packed, device=device),
+            'jacobian_dd': DenseJacobian(packed, device=device)}
+    live = {}
+    for name, sizes in LIBGEN_RUNS:
+        mod = mods[name]
+        for B, n in sizes:
+            y_t, P_t = to_tr(*flagship_states(B), device)
+            out = mod.call_tr(y_t, P_t)
+            fps = [fingerprint(x) for x in out]
+            del out
+            live['%s/%d' % (name, B)] = (fps, per_call_ms(
+                lambda: [torch.sum(x) for x in mod.call_tr(y_t, P_t)], n))
+            del y_t, P_t
+            torch.cuda.empty_cache()
+    y_t, P_t = to_tr(*flagship_states(LIBGEN_PLAIN_B), device)
+    rho = own_density(packed, y_t, P_t)[0]
+    np.save(work / 'rho.npy', rho.cpu().numpy())
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, '-c', LIBGEN_CHILD, conp_dir, conv_dir,
+         os.path.join(DATA, 'flagship_states.npz'), str(work / 'rho.npy'),
+         str(work), json.dumps(LIBGEN_RUNS), str(LIBGEN_PLAIN_B)],
+        cwd=HERE, capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, 'the library process failed (%d): %s' % (
+        out.returncode, out.stderr[-4000:]))
+    child = json.loads(out.stdout.strip().splitlines()[-1])
+    child_s = time.perf_counter() - t1
+    for key, (fps, ms) in live.items():
+        name, B = key.split('/')
+        got = child['runs'][key]
+        want = {k: int(k in LIBGEN_KERNELS[name]) for k in kernels.launches}
+        ratio = got['ms'] / ms
+        print('phase 16 %s B=%s: artifact %.3f ms, live module %.3f ms, '
+              'ratio %.3f (<= %.2f); one call launched %s; outputs equal the '
+              'live module\'s bit for bit: %s (%s)' % (
+                  name, B, got['ms'], ms, ratio, LIBGEN_SLOWDOWN,
+                  {k: v for k, v in got['launches'].items() if v},
+                  got['fp'] == fps, card))
+        check(got['launches'] == want, '%s: one call launched %s, want %s'
+              % (key, got['launches'], want))
+        check(got['fp'] == fps, '%s: outputs differ from the live '
+              'module\'s' % key)
+        check(ratio <= LIBGEN_SLOWDOWN, '%s: artifact pass %.3f ms, %.3fx '
+              'the live module\'s' % (key, got['ms'], ratio))
+    # the plain artifacts against the live functions
+    plain = np.load(work / 'plain.npz')
+    y, P = y_t.T.contiguous(), P_t[0].contiguous()
+    J, f = jacobian_and_dydt(packed, 0.0, P, y)
+    T = y[:, 0]
+    from pyjac_tpu_torch.ops.rates import eval_rxn_rates, get_rxn_pres_mod
+    from pyjac_tpu_torch.ops.thermo import eval_conc_rho
+    _, _, pres, conc = eval_conc_rho(packed, T, rho, y[:, 1:])
+    fwd, rev = eval_rxn_rates(packed, T, pres, conc)
+    pm = get_rxn_pres_mod(packed, T, pres, conc)
+    errs = {}
+    for k, ref in (('dydt', dydt(packed, 0.0, P, y)), ('J', J), ('f', f),
+                   ('fwd', fwd), ('rev', rev), ('pm', pm)):
+        ref = ref.cpu().numpy()
+        errs[k] = (float(np.abs(plain[k] - ref).max() /
+                         (np.abs(ref).max() + 1e-300)),
+                   bool(np.array_equal(plain[k], ref)))
+    print('phase 16 plain artifacts at B=%d (dydt, jacobian_and_dydt CONP; '
+          'rates CONV): max |diff| / max |live| %s (<= %.0e) (%s)' % (
+              LIBGEN_PLAIN_B, ', '.join('%s %.3e%s' % (
+                  k, e, ' bit-equal' if eq else '')
+                  for k, (e, eq) in errs.items()), TOL_LIBGEN_PLAIN, card))
+    for k, (e, _) in errs.items():
+        check(e <= TOL_LIBGEN_PLAIN, 'plain artifact %s: %.3e' % (k, e))
+    print('phase 16 libgen: export %.1f s, library process %.1f s, its '
+          'launches %s (%s)' % (gen_s, child_s, child['launches'], card))
+    return {'counts': child['launches']}
+
+
+def phase_mesh(packed, device, card):
+    """Phase 17: ``parallel.mesh`` on the card, in an NCCL group of one
+    process (``initialize_distributed`` with a ``file://`` rendezvous
+    under the build directory): ``sharded_step_dd`` (K4) and
+    ``sharded_jacobian_dd_xla`` (K4) at B = 32768, and
+    ``sharded_jacobian_dd_xla_sparse`` (K1 + K2) at B = 131072, each
+    equal to its unsharded module bit for bit, with its norm the JAX
+    package's, max|J| + max|dy/dt| (one shard), and one launch of each
+    of its kernels; the
+    plain ``sharded_step`` at B = 4096 equal to ``jacobian_and_dydt``.
+    The group is destroyed at the end."""
+    import torch.distributed as dist
+    init = kernels.build_dir() / 'mesh_init'
+    if init.exists():
+        init.unlink()
+    pmesh.initialize_distributed('file://' + str(init), 1, 0, device=device)
+    total = {}
+    try:
+        check(dist.get_backend() == 'nccl', 'backend %s' % dist.get_backend())
+        mesh = pmesh.make_mesh(device=device)
+        check(mesh.devices == (device,) and mesh.size == 1,
+              'mesh %s' % (mesh,))
+        cases = (
+            ('sharded_step_dd', 32768, ('dense_fused',), True,
+             lambda: DenseJacobian(packed, device=device).call_tr),
+            ('sharded_jacobian_dd_xla', 32768, ('dense_fused',), False,
+             lambda: DenseJacobian(packed, device=device)),
+            ('sharded_jacobian_dd_xla_sparse', 131072,
+             ('stage_a', 'stage_b'), False,
+             lambda: SparseJacobian(packed, device=device)),
+            ('sharded_step', 4096, (), False,
+             lambda: lambda y, P: jacobian_and_dydt(packed, 0.0, P, y)))
+        for name, B, need, minor, whole in cases:
+            step = getattr(pmesh, name)(packed, mesh)
+            y_t, P_t = to_tr(*flagship_states(B), device)
+            args = (y_t, P_t) if minor else (y_t.T.contiguous(), P_t[0])
+            kernels.reset_launches()
+            J, f, norm = step(*args)
+            torch.cuda.synchronize()
+            counts = dict(kernels.launches)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            J0, f0 = whole()(*args)
+            want = float(J0.abs().max()) + float(f0.abs().max())
+            same = torch.equal(J, J0) and torch.equal(f, f0)
+            print('phase 17 %s B=%d: equal to the unsharded call bit for bit: '
+                  '%s; norm %.6e (max|J| + max|f| %.6e); launches %s (%s)' % (
+                      name, B, same, float(norm), want,
+                      {k: v for k, v in counts.items() if v}, card))
+            check(same, '%s: sharded outputs differ' % name)
+            check(float(norm) == want, '%s: norm %r, want %r' % (
+                name, float(norm), want))
+            check(counts == {k: int(k in need) for k in counts},
+                  '%s launched %s' % (name, counts))
+            del J, f, J0, f0, y_t, P_t, args
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {'counts': total}
+
+
+def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh):
     """The kernels line: one row per ported TPU kernel.  ``launches`` is
     the count of the path at whose shape the kernel is timed;
     ``launches_by_path`` every path's run, the performance tester's
-    kernel methods included."""
+    kernel methods, the exported library's process (``libgen``) and the
+    mesh steps (``mesh``) included."""
     flag = {'flagship': main_res['counts'],
             'flagship_unfused': integ['counts_unfused'],
             'synth53': synth['counts'],
@@ -2177,25 +2420,27 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front):
             by_path = {p: c[name] for p, c in flag.items()}
             main_path = ('flagship_unfused' if name == 'stage_b_x'
                          else 'flagship')
-            b_ms, b_by = (integ['bound_x'] if name == 'stage_b_x'
-                          else main_res['bounds'][name])
+            b_ms, b_by, _ = (integ['bound_x'] if name == 'stage_b_x'
+                             else main_res['bounds'][name])
         elif name == 'dense_fused':
             ms, main_path = integ['ms'], 'integrate'
             by_path = {'integrate': integ['counts_integrate'][name]}
-            b_ms, b_by = integ['bound']
+            b_ms, b_by, _ = integ['bound']
         elif name == 'fused_f32':
             ms, main_path = f32['ms'], 'f32'
             by_path = {'f32': f32['counts'][name]}
-            b_ms, b_by = f32['bound']
+            b_ms, b_by, _ = f32['bound']
         else:
             ms = big['ms']
             by_path = {p: big['counts_' + p][name]
                        for p in ('654', 'usc', '654_dense')}
             main_path = '654_dense' if name == 'big_cols_dense' else '654'
-            b_ms, b_by = big['bounds'][name]
+            b_ms, b_by, _ = big['bounds'][name]
         for method in ('dd-sparse', 'dd', 'pallas'):
             by_path['perf_' + method.replace('-', '_')] = \
                 front['counts'][method][name]
+        by_path['libgen'] = lib['counts'].get(name, 0)
+        by_path['mesh'] = msh['counts'].get(name, 0)
         rows.append(dict(
             name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
             replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
@@ -2231,7 +2476,7 @@ def main():
     sizes = {'654': 1024, 'usc': 32768, '654_dense': 512}
     # phases 3, 9a and 12 also hold K1 + K2, K4 and K3 at the performance
     # tester's largest batches (phase 15b), where their cases lack them
-    tester_mechs = {'flagship': packed, 'usc': p_usc}
+    tester_mechs = {'flagship': packed, 'usc': p_usc, '654': p654}
     errs = phase_kernels_vs_plain(with_tester_shapes(
         (('flagship', packed, 16384, True),
          ('synth53', p_syn53, 16384, False)), 'dd-sparse', tester_mechs,
@@ -2302,11 +2547,16 @@ def main():
     seconds['14'] = time.perf_counter() - t0 - sum(seconds.values())
     front = phase_frontend(mech, device, card, main_res, f32, integ)
     seconds['15'] = time.perf_counter() - t0 - sum(seconds.values())
+    lib = phase_libgen(packed, device, card)
+    seconds['16'] = time.perf_counter() - t0 - sum(seconds.values())
+    msh = phase_mesh(packed, device, card)
+    seconds['17'] = time.perf_counter() - t0 - sum(seconds.values())
     print('phase seconds (host clock): %s, total %.1f s' % (
         ', '.join('%s %.1f' % kv for kv in seconds.items()),
         time.perf_counter() - t0))
 
-    rows = kernel_rows(errs, main_res, synth, big, integ, f32, front)
+    rows = kernel_rows(errs, main_res, synth, big, integ, f32, front, lib,
+                       msh)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -47,8 +47,7 @@ import chip_smoke as cs  # noqa: E402
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
     PARTS_INT_TABLES, BigJacobian, state_thermo)
-from pyjac_tpu_torch.ops.jacobian_sparse import (  # noqa: E402
-    KERNEL_INT_TABLES, SparseJacobian)
+from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian  # noqa: E402
 from pyjac_tpu_torch.ops.rates import _LN_PA_RU  # noqa: E402
 from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
     flagship, packed_from_text, plausible_mechanism, synthetic_mechanism)
@@ -106,11 +105,9 @@ def build():
 
 def k1_tables(sj):
     """K1's table pointers and dims of ``sj`` (its launcher's)."""
-    _, ptrs = kernels._table_ptrs(sj, ('kp_', 'kf_', 'ka_'),
-                                  PARTS_INT_TABLES + KERNEL_INT_TABLES, F64,
-                                  sj.device)
-    dims = kernels._kinetics_dims(sj) + [sj.S_eff]
-    return ptrs, (ctypes.c_int * len(dims))(*dims)
+    tabs, dims = kernels.stage_a_inputs(sj)
+    ptrs = kernels.table_ptrs(tabs, F64, sj.device, 'K1')
+    return ptrs, (ctypes.c_int * 12)(*dims[:12])
 
 
 def parent_k1(dll, last, sj, y_t, P_t, keep):
@@ -132,7 +129,9 @@ def parent_k1(dll, last, sj, y_t, P_t, keep):
 def cut_k1(dll, last, sj, y_t, P_t, plan=None):
     """The launcher's K1 cut after phase ``last`` under ``plan``: its
     outputs."""
-    _, args, out, keep = kernels.stage_a_args(sj, y_t, P_t, plan)
+    _, args, out, keep = kernels.stage_a_args(*kernels.stage_a_inputs(sj),
+                                              y_t, P_t,
+                                              kernels.plan_ints(plan))
     err = dll.sap_k1(last, *args)
     cs.check(err == 0, 'K1 cut %d: CUDA error %d' % (last, err))
     del keep
@@ -249,8 +248,8 @@ def k5_case(dll, name, packed, B_k5, card):
     dims = [bj.N, bj.R, bj.Sf, bj.Sp, p.plog_lnP.shape[1], NT, NP,
             int(bj.conp), int(p.has_frac_nu)]
     cdims = (ctypes.c_int * len(dims))(*dims)
-    n_tabs, ptrs = kernels._table_ptrs(bj, ('kp_',), PARTS_INT_TABLES, F64,
-                                       dev)
+    tabs = kernels._module_tables(bj, ('kp_',), PARTS_INT_TABLES, F64)
+    n_tabs, ptrs = len(tabs), kernels.table_ptrs(tabs, F64, dev, 'K5')
     pieces = (((0, bj.split_r1, 1), (bj.split_r1, bj.R - bj.split_r1, 0))
               if bj.split_r1 else ((0, bj.R, int(p.has_pres_mod)),))
 

@@ -17,6 +17,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 # Guard floor used by the reference generated code for log10 arguments
 # (reference: pyjac/core/rate_subs.py:1189-1233 'fmax(..., 1.0e-300)').
@@ -28,16 +29,33 @@ F64 = torch.float64
 _CACHE = {}
 
 
+def _tracing() -> bool:
+    """Whether a tracer runs the caller: ``torch.export`` or
+    ``torch.compile``, or a fake tensor mode, under which new tensors
+    carry shapes and no data."""
+    return (torch.compiler.is_compiling() or
+            torch._guards.detect_fake_mode() is not None)
+
+
 def cached(packed, key, build):
     """``build()``, cached per (``packed``, ``key``) for as long as
     ``packed`` lives: the cache holds only a weak reference to it, so a
     recycled ``id`` never returns another mechanism's entry and a
-    dropped mechanism's tensors are freed with it."""
+    dropped mechanism's tensors are freed with it.  Under a tracer
+    (:func:`_tracing`) ``build()`` runs outside its modes: the tensors it
+    would make there are fake ones, which a later eager call must not be
+    served."""
     k = (id(packed), key)
     hit = _CACHE.get(k)
     if hit is not None and hit[0]() is packed:
         return hit[1]
-    val = build()
+    if _tracing():
+        # build real tensors beside the tracer, which lifts them as
+        # constants, as it does a value cached before it started
+        with _disable_current_modes():
+            val = build()
+    else:
+        val = build()
     _CACHE[k] = (weakref.ref(packed), val)
     weakref.finalize(packed, _CACHE.pop, k, None)
     return val

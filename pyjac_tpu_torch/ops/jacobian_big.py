@@ -53,7 +53,8 @@ from ..core.pack import permute_reactions, presmod_first_order
 from .common import F64, as_f64, entry_device
 from .jacobian import heat_terms, reaction_parts_at, state_quantities
 from .jacobian_sparse import (MAX_SLOTS, column_csr, column_roles,
-                              finish_rows, post_col_reference, role_tables)
+                              finish_rows, post_col_reference, post_rows,
+                              role_tables)
 from .thermo import eval_dsmh_dT, eval_smh
 
 # roles after the Sf + Sp slot rows of the ``roles`` array
@@ -374,7 +375,7 @@ class BigJacobian(nn.Module):
         self.N, self.R, self.J = N, R, N - 1
         self.Sf, self.Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
         self.n_roles = self.Sf + self.Sp + len(ROLE_NAMES)
-        self.n_post = 4 * N + 2 * self.J + 3
+        self.n_post = post_rows(N, self.J)['fT'][1]
         self.unsupported = parts_unsupported(packed)
         self._launch_cache = {}
         buf = lambda name, a: self.register_buffer(name, torch.as_tensor(a))

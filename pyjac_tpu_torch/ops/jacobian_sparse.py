@@ -430,7 +430,7 @@ class SparseJacobian(nn.Module):
         self.N, self.R, self.J = ct['N'], ct['R'], ct['J']
         self.Sf, self.Sp, self.S_eff = ct['Sf'], ct['Sp'], ct['S_eff']
         self.n_src, self.Rmax = ct['n_src'], ct['Rmax']
-        self.n_post = 4 * self.N + 2 * self.J + 3
+        self.n_post = post_rows(self.N, self.J)['fT'][1]
         from .jacobian_big import parts_unsupported
         self.unsupported = parts_unsupported(packed)
         self.register_buffer('gidx', torch.as_tensor(ct['gidx']))

@@ -16,6 +16,21 @@ reaction ranges of a split), launches
 on the current CUDA stream, raises if the C entry returns a non-zero
 ``cudaError_t``, and adds one to ``launches[name]``.  There is no
 fallback: a launcher given anything but CUDA tensors raises.
+
+K1, K2 and K4, the kernels :mod:`pyjac_tpu_torch.libgen` exports, are
+also registered as PyTorch operators (``torch.ops.pyjac_tpu_torch.
+stage_a``, ``stage_b``, ``dense_fused``; :class:`torch.library.Library`)
+taking their tables as a list of tensors, their dimensions as a list of
+ints and, for K1 and K4, an optional tile plan, so that ``torch.export``
+can trace a call: their fake implementations give the output shapes from
+the dimensions and the batch, and their one implementation, for CUDA, is
+the launch, planning its tiles from the batch at run time unless given a
+plan.  :func:`stage_a`, :func:`stage_b` and :func:`dense_fused` always go
+through them, so the live path and an exported program run the same
+code.  A module's tables and dims are gathered once
+(:func:`stage_a_inputs`, :func:`stage_b_inputs`, :func:`dense_inputs`)
+and their pointers checked once (:func:`table_ptrs`).  Importing this
+module registers the operators.
 """
 
 from __future__ import annotations
@@ -30,7 +45,7 @@ import time
 
 import torch
 
-from .common import F64
+from .common import F64, _tracing
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
@@ -180,6 +195,16 @@ def _check(name, x, shape, dtype, device):
         raise ValueError('%s must be contiguous' % name)
 
 
+def _on_card(name, x):
+    """Refuse an operator's input that is not a CUDA tensor (or a meta
+    one, whose shapes alone a trace reads): the operators have no other
+    implementation, and a caller on the CPU runs the plain versions."""
+    if not isinstance(x, torch.Tensor) or x.device.type not in ('cuda',
+                                                                 'meta'):
+        raise ValueError('%s: expected a CUDA tensor, got %s' % (
+            name, x.device if isinstance(x, torch.Tensor) else type(x)))
+
+
 def _raise_on(err, what):
     if err != 0:
         msg = ('%s: invalid dimensions' % what if err == -1 else
@@ -195,18 +220,55 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _table_ptrs(mod, prefixes, int_names, dtype, dev):
+def _module_tables(mod, prefixes, int_names, dtype) -> list:
     """The table buffers of ``mod`` whose names start with one of
-    ``prefixes``, in registration order (the C struct's), each checked:
-    int32 where its name after the prefix is in ``int_names``, else
-    ``dtype``.  Returns (their count, a ctypes array of their device
-    pointers)."""
+    ``prefixes``, in registration order (the C struct's), each checked
+    on any device: int32 where its name after the prefix is in
+    ``int_names``, else ``dtype``."""
     tabs = [(k, t) for k, t in mod._buffers.items() if k[:3] in prefixes]
     for k, t in tabs:
         want = torch.int32 if k[3:] in int_names else dtype
-        _check(type(mod).__name__ + '.' + k, t, t.shape, want, dev)
-    return len(tabs), (ctypes.c_void_p * len(tabs))(
-        *[t.data_ptr() for _, t in tabs])
+        if t.dtype != want:
+            raise ValueError('%s.%s: expected %s, got %s' % (
+                type(mod).__name__, k, want, t.dtype))
+    return [t for _, t in tabs]
+
+
+def _module_inputs(mod, kernel, build):
+    """``build()``, one kernel's (tables, dims) of ``mod``, kept on the
+    module while its buffers are the same tensors (a move or a
+    reassigned buffer builds anew; the kept tables hold their ids).
+    Under a tracer the module's buffers are the tracer's stand-ins:
+    built anew and not kept."""
+    if _tracing():
+        return build()
+    ids = tuple(map(id, mod._buffers.values()))
+    kept = mod.__dict__.setdefault('_kernel_inputs', {})
+    hit = kept.get(kernel)
+    if hit is None or hit[0] != ids:
+        hit = kept[kernel] = (ids, build())
+    return hit[1]
+
+
+# checked table pointer arrays by the tables' identities (the tables
+# held, so an id is not reused while kept): a launch of K1 passes ~50
+_PTRS = {}
+
+
+def table_ptrs(tabs, dtype, dev, what):
+    """A ctypes array of the device pointers of the tables ``tabs``, each
+    checked once: on ``dev``, contiguous, int32 or ``dtype``."""
+    key = (dtype, dev) + tuple(map(id, tabs))
+    hit = _PTRS.get(key)
+    if hit is None:
+        for i, t in enumerate(tabs):
+            _check('%s table %d' % (what, i), t, t.shape,
+                   torch.int32 if t.dtype == torch.int32 else dtype, dev)
+        if len(_PTRS) >= 16:
+            _PTRS.clear()
+        hit = _PTRS[key] = (list(tabs), (ctypes.c_void_p * len(tabs))(
+            *[t.data_ptr() for t in tabs]))
+    return hit[1]
 
 
 def _kinetics_dims(mod) -> list:
@@ -219,51 +281,77 @@ def _kinetics_dims(mod) -> list:
             int(p.has_pres_mod), int(p.has_specific_pdep_sp)]
 
 
+def stage_a_inputs(mod):
+    """K1's (tables, dims) of ``mod`` (a ``SparseJacobian``): the tables
+    K5's ``kp_``, the closure's ``kf_``, then ``ka_``; the dims
+    :func:`_kinetics_dims`, S_eff (the C entry's twelve), then the rows
+    of the source stack and of the post block."""
+    from .jacobian_big import PARTS_INT_TABLES
+    from .jacobian_sparse import KERNEL_INT_TABLES
+    return _module_inputs(mod, 'stage_a', lambda: (
+        _module_tables(mod, ('kp_', 'kf_', 'ka_'),
+                       PARTS_INT_TABLES + KERNEL_INT_TABLES, F64),
+        _kinetics_dims(mod) + [mod.S_eff, mod.n_src, mod.n_post]))
+
+
+def stage_b_inputs(mod):
+    """K2's (tables, dims) of ``mod`` (a ``SparseJacobian``): [col_ptr,
+    col_src, col_coef, inv_mw] and [N, conp, n_src, n_post]."""
+    return _module_inputs(mod, 'stage_b', lambda: (
+        [mod.col_ptr, mod.col_src, mod.col_coef, mod.inv_mw],
+        [mod.N, int(mod.conp), mod.n_src, mod.n_post]))
+
+
+def dense_inputs(mod, dtype):
+    """K4's / K3's (tables, dims) of ``mod`` in ``dtype``: the tables
+    K5's ``kp_``, then ``kf_``; the dims :func:`_kinetics_dims`."""
+    from .jacobian_big import PARTS_INT_TABLES
+    from .jacobian_dense import FUSED_INT_TABLES
+    return _module_inputs(mod, ('dense', dtype), lambda: (
+        _module_tables(mod, ('kp_', 'kf_'),
+                       PARTS_INT_TABLES + FUSED_INT_TABLES, dtype),
+        _kinetics_dims(mod)))
+
+
 def stage_a(mod, y_t, P_t, plan=None) -> dict:
     """Launch the stage-A kernel K1 (``csrc/sparse_stage_a.cu``) for the
     tables of ``mod`` (a ``SparseJacobian``) on (N, B) states and a
-    (1, B) pressure/density row: returns ``src``, ``col0``, ``f`` and
+    (1, B) pressure/density row, through the operator
+    ``pyjac_tpu_torch::stage_a``: returns ``src``, ``col0``, ``f`` and
     ``post``.  ``plan``: a :func:`tile_plan` in place of the planner's
     own choice."""
-    lib, args, out, _scratch = stage_a_args(mod, y_t, P_t, plan)
-    with torch.cuda.device(y_t.device):
-        err = lib.pyjac_stage_a(*args)
-    _raise_on(err, 'stage A kernel')
-    launches['stage_a'] += 1
-    return out
+    _on_card('y_t', y_t)
+    mod.check_kernel_coverage(y_t.device)
+    out = torch.ops.pyjac_tpu_torch.stage_a(*stage_a_inputs(mod), y_t, P_t,
+                                            plan_ints(plan))
+    return dict(zip(('src', 'col0', 'f', 'post'), out))
 
 
-def stage_a_args(mod, y_t, P_t, plan=None):
-    """The checked arguments of K1's C entry for ``mod`` on (N, B) states
-    and a (1, B) pressure/density row, under ``plan`` (default
+def stage_a_args(tabs, dims, y_t, P_t, plan=None):
+    """Everything a K1 launch passes, checked, for the tables and dims of
+    :func:`stage_a_inputs` under ``plan`` (:func:`plan_ints`; default
     :func:`tile_plan`'s for the card): (the library, the argument list,
     the outputs it fills as {src, col0, f, post}, the scratch it uses:
     keep it until the launch)."""
     from .rates import _LN_PA_RU
-    from .jacobian_big import PARTS_INT_TABLES
-    from .jacobian_sparse import KERNEL_INT_TABLES
-    dev, N, B = y_t.device, mod.N, y_t.shape[-1]
+    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
     _check('y_t', y_t, (N, B), F64, dev)
     _check('P_t', P_t, (1, B), F64, dev)
-    mod.check_kernel_coverage(dev)
-    n_tabs, ptrs = _table_ptrs(mod, ('kp_', 'kf_', 'ka_'),
-                               PARTS_INT_TABLES + KERNEL_INT_TABLES, F64, dev)
+    ptrs = table_ptrs(tabs, F64, dev, 'stage A')
     lib = load()
-    if lib.pyjac_stage_a_n_tables() != n_tabs:
+    if lib.pyjac_stage_a_n_tables() != len(tabs):
         raise RuntimeError('stage-A table count mismatch: %d in Python, %d '
-                           'in the kernel' % (n_tabs,
+                           'in the kernel' % (len(tabs),
                                               lib.pyjac_stage_a_n_tables()))
-    dims = _kinetics_dims(mod) + [mod.S_eff]
-    cdims = (ctypes.c_int * len(dims))(*dims)
+    cdims = (ctypes.c_int * 12)(*dims[:12])
     if plan is None:
-        plan = tile_plan(mod, F64, B, _n_sm(dev))
+        plan = plan_ints(_plan(dims, True, F64, B, _n_sm(dev)))
     cplan = _plan_arg(plan, lib.pyjac_stage_a_tile_rows(cdims), 'stage A')
     out = {k: torch.empty((rows, B), dtype=F64, device=dev)
-           for k, rows in (('src', mod.n_src), ('col0', N), ('f', N),
-                           ('post', mod.n_post))}
-    scratch = torch.empty((max(1, plan['scratch_elems']),), dtype=F64,
-                          device=dev)
-    args = [ptrs, n_tabs, cdims, len(dims), _LN_PA_RU, _ptr(y_t), _ptr(P_t),
+           for k, rows in (('src', dims[12]), ('col0', N), ('f', N),
+                           ('post', dims[13]))}
+    scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
+    args = [ptrs, len(tabs), cdims, 12, _LN_PA_RU, _ptr(y_t), _ptr(P_t),
             B, *(_ptr(out[k]) for k in ('src', 'col0', 'f', 'post')),
             _ptr(scratch), cplan, 4, _stream(dev)]
     return lib, args, out, scratch
@@ -271,24 +359,11 @@ def stage_a_args(mod, y_t, P_t, plan=None):
 
 def stage_b(mod, src, post):
     """Launch the stage-B kernel (``csrc/sparse_stage_b.cu``): the
-    (J, N, B) Jacobian columns from stage A's ``src`` and ``post``."""
-    dev, N, J, B = src.device, mod.N, mod.J, src.shape[-1]
-    _check('src', src, (mod.n_src, B), F64, dev)
-    _check('post', post, (mod.n_post, B), F64, dev)
-    for name, want in (('col_ptr', torch.int32), ('col_src', torch.int32),
-                       ('col_coef', F64), ('inv_mw', F64)):
-        t = getattr(mod, name)
-        _check('SparseJacobian.' + name, t, t.shape, want, dev)
-    lib = load()
-    out = torch.empty((J, N, B), dtype=F64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pyjac_stage_b(_ptr(mod.col_ptr), _ptr(mod.col_src),
-                                _ptr(mod.col_coef), _ptr(mod.inv_mw),
-                                _ptr(src), _ptr(post), _ptr(out), N,
-                                int(mod.conp), B, _stream(dev))
-    _raise_on(err, 'stage B kernel')
-    launches['stage_b'] += 1
-    return out
+    (J, N, B) Jacobian columns from stage A's ``src`` and ``post``,
+    through the operator ``pyjac_tpu_torch::stage_b``."""
+    _on_card('src', src)
+    return torch.ops.pyjac_tpu_torch.stage_b(*stage_b_inputs(mod), src,
+                                             post)
 
 
 def big_parts(mod, st_rows, roles, row0: int, rows: int, has_pm: bool):
@@ -424,21 +499,24 @@ def big_cols_dense(mod, roles, post):
 def dense_fused(mod, y_t, P_t, plan=None):
     """Launch the K4 kernel (``csrc/dense_fused.cu``) for the tables of
     ``mod`` (a ``DenseJacobian``) on (N, B) states and a (1, B)
-    pressure/density row: returns ``Jt`` (N, N, B), [column, row,
-    batch], and dy/dt ``f`` (N, B).  ``plan``: a :func:`tile_plan`
+    pressure/density row, through the operator
+    ``pyjac_tpu_torch::dense_fused``: returns ``Jt`` (N, N, B), [column,
+    row, batch], and dy/dt ``f`` (N, B).  ``plan``: a :func:`tile_plan`
     in place of the planner's own choice."""
-    return _dense(mod, y_t, P_t, F64, 'pyjac_dense_fused', 'dense_fused',
-                  'K4 dense fused kernel', plan)
+    _on_card('y_t', y_t)
+    return tuple(torch.ops.pyjac_tpu_torch.dense_fused(
+        *dense_inputs(mod, F64), y_t, P_t, plan_ints(plan)))
 
 
 def fused_f32(mod, y_t, P_t, plan=None):
-    """Launch the K3 kernel, the float32 instantiation of K4's
-    (``csrc/dense_fused.cu``), for the tables of ``mod`` (an
-    ``F32Jacobian``) on float32 (N, B) states and a (1, B)
-    pressure/density row: returns float32 ``Jt`` (N, N, B), [column, row,
-    batch], and dy/dt ``f`` (N, B).  ``plan`` as :func:`dense_fused`'s."""
-    return _dense(mod, y_t, P_t, torch.float32, 'pyjac_fused_f32',
-                  'fused_f32', 'K3 f32 fused kernel', plan)
+    """Launch the K3 kernel (``csrc/dense_fused.cu`` instantiated for
+    float) for the tables of ``mod`` (an ``F32Jacobian``) on float32
+    (N, B) states and a (1, B) pressure/density row: returns float32
+    ``Jt`` (N, N, B), [column, row, batch], and dy/dt ``f`` (N, B).
+    ``plan`` as :func:`dense_fused`'s.  K3 is no operator: no exported
+    program calls it."""
+    return _launch_dense(*dense_inputs(mod, torch.float32), y_t, P_t,
+                         torch.float32, plan_ints(plan))
 
 
 # the block of a state tile (csrc/state_tile.cuh TILE_THREADS: K1, K4,
@@ -502,9 +580,16 @@ def tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
     12 by 5%: PERF.md).  ``tile`` / ``placement`` override the choice.
     Returns {tile, placement, grid, rows, smem_bytes, scratch_elems}."""
     from .jacobian_sparse import SparseJacobian
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    dims = _kinetics_dims(mod)
-    if isinstance(mod, SparseJacobian):
+    return _plan(_kinetics_dims(mod), isinstance(mod, SparseJacobian), dtype,
+                 B, n_sm, tile, placement)
+
+
+def _plan(dims, sparse: bool, dtype, B: int, n_sm: int, tile=None,
+          placement=None) -> dict:
+    """:func:`tile_plan` from the kinetics dims leading ``dims`` of K1
+    (``sparse``) or of K4 / K3: what the operators plan at run time."""
+    itemsize = dtype.itemsize
+    if sparse:
         rows = stage_a_tile_rows(dims[0], dims[1], dims[10])
         most = max(1, TILE_THREADS // (dims[0] + 1))
     else:
@@ -545,21 +630,38 @@ def _n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def plan_ints(plan):
+    """A :func:`tile_plan` as the operators take it: [tile, shared (1) or
+    global (0), grid, rows, scratch_elems]; None stays None (the launch
+    plans for itself)."""
+    if plan is None:
+        return None
+    return [plan['tile'], int(plan['placement'] == 'shared'), plan['grid'],
+            plan['rows'], plan['scratch_elems']]
+
+
 def _plan_arg(plan, kernel_rows: int, what: str):
-    """``plan`` as the C entries take it, after checking its rows
-    against the kernel's own count."""
-    if kernel_rows != plan['rows']:
+    """``plan`` (:func:`plan_ints`) as the C entries take it, after
+    checking its rows against the kernel's own count."""
+    if kernel_rows != plan[3]:
         raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
-                           'kernel' % (what, plan['rows'], kernel_rows))
-    return (ctypes.c_longlong * 4)(
-        plan['tile'], int(plan['placement'] == 'shared'), plan['grid'],
-        plan['rows'])
+                           'kernel' % (what, plan[3], kernel_rows))
+    return (ctypes.c_longlong * 4)(*plan[:4])
 
 
-def _dense(mod, y_t, P_t, dtype, entry, name, what, plan=None):
-    """K4's kernel in ``dtype`` through the C entry ``entry``; counts
-    under ``name``."""
-    lib, args, Jt, f, _scratch = dense_args(mod, y_t, P_t, dtype, what, plan)
+# K4's kernel in each type: (C entry, launch counter, what it is)
+_DENSE_ENTRIES = {F64: ('pyjac_dense_fused', 'dense_fused',
+                        'K4 dense fused kernel'),
+                  torch.float32: ('pyjac_fused_f32', 'fused_f32',
+                                  'K3 f32 fused kernel')}
+
+
+def _launch_dense(tabs, dims, y_t, P_t, dtype, plan=None):
+    """K4's kernel in ``dtype`` (K4, or K3 in float32) on the tables and
+    dims of :func:`dense_inputs`, counted: (Jt, f)."""
+    entry, name, what = _DENSE_ENTRIES[dtype]
+    lib, args, Jt, f, _scratch = dense_args(tabs, dims, y_t, P_t, dtype,
+                                            plan)
     with torch.cuda.device(y_t.device):
         err = getattr(lib, entry)(*args)
     _raise_on(err, what)
@@ -567,34 +669,103 @@ def _dense(mod, y_t, P_t, dtype, entry, name, what, plan=None):
     return Jt, f
 
 
-def dense_args(mod, y_t, P_t, dtype, what, plan=None):
-    """The checked arguments of K4's / K3's C entry for ``mod`` on (N, B)
-    states and a (1, B) pressure/density row in ``dtype``, under ``plan``
-    (default :func:`tile_plan`'s for the card): (the library, the
-    argument list, the outputs Jt and f it fills, the scratch it uses:
-    keep it until the launch)."""
+def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
+    """Everything a launch of K4's kernel in ``dtype`` passes, checked,
+    for the tables and dims of :func:`dense_inputs` under ``plan``
+    (:func:`plan_ints`; default :func:`tile_plan`'s for the card): (the
+    library, the argument list, the outputs Jt and f it fills, the
+    scratch it uses: keep it until the launch)."""
     from .rates import _LN_PA_RU
-    from .jacobian_big import PARTS_INT_TABLES
-    from .jacobian_dense import FUSED_INT_TABLES
-    dev, N, B = y_t.device, mod.N, y_t.shape[-1]
+    what = _DENSE_ENTRIES[dtype][2]
+    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
     _check('y_t', y_t, (N, B), dtype, dev)
     _check('P_t', P_t, (1, B), dtype, dev)
-    n_tabs, ptrs = _table_ptrs(mod, ('kp_', 'kf_'),
-                               PARTS_INT_TABLES + FUSED_INT_TABLES, dtype, dev)
+    ptrs = table_ptrs(tabs, dtype, dev, what)
     lib = load()
-    if lib.pyjac_dense_fused_n_tables() != n_tabs:
+    if lib.pyjac_dense_fused_n_tables() != len(tabs):
         raise RuntimeError('%s: table count mismatch: %d in Python, %d in '
-                           'the kernel' % (what, n_tabs,
+                           'the kernel' % (what, len(tabs),
                                            lib.pyjac_dense_fused_n_tables()))
-    dims = _kinetics_dims(mod)
     cdims = (ctypes.c_int * len(dims))(*dims)
     if plan is None:
-        plan = tile_plan(mod, dtype, B, _n_sm(dev))
+        plan = plan_ints(_plan(dims, False, dtype, B, _n_sm(dev)))
     cplan = _plan_arg(plan, lib.pyjac_dense_fused_tile_rows(cdims), what)
     Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
     f = torch.empty((N, B), dtype=dtype, device=dev)
-    scratch = torch.empty((max(1, plan['scratch_elems']),), dtype=dtype,
-                          device=dev)
-    args = [ptrs, n_tabs, cdims, len(dims), _LN_PA_RU, _ptr(y_t), _ptr(P_t),
-            B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4, _stream(dev)]
+    scratch = torch.empty((max(1, plan[4]),), dtype=dtype, device=dev)
+    args = [ptrs, len(tabs), cdims, len(dims), _LN_PA_RU, _ptr(y_t),
+            _ptr(P_t), B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4,
+            _stream(dev)]
     return lib, args, Jt, f, scratch
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and K4 as PyTorch operators (what torch.export traces and an
+# exported program calls); one implementation each, for CUDA.  Defined
+# through torch.library.Library rather than custom_op, whose Python
+# wrappers (device dispatch, autograd) every call would pay: a pass at a
+# small batch is bound by the host.
+# ---------------------------------------------------------------------------
+
+_OPS = torch.library.Library('pyjac_tpu_torch', 'DEF')
+_OPS.define('stage_a(Tensor[] tables, int[] dims, Tensor y_t, Tensor P_t, '
+            'int[]? plan=None) -> (Tensor, Tensor, Tensor, Tensor)')
+_OPS.define('stage_b(Tensor[] tables, int[] dims, Tensor src, Tensor post) '
+            '-> Tensor')
+_OPS.define('dense_fused(Tensor[] tables, int[] dims, Tensor y_t, '
+            'Tensor P_t, int[]? plan=None) -> (Tensor, Tensor)')
+
+
+def _stage_a_op(tables, dims, y_t, P_t, plan=None):
+    """K1, counted: (src, col0, f, post) from :func:`stage_a_inputs`."""
+    lib, args, out, _scratch = stage_a_args(tables, dims, y_t, P_t, plan)
+    with torch.cuda.device(y_t.device):
+        err = lib.pyjac_stage_a(*args)
+    _raise_on(err, 'stage A kernel')
+    launches['stage_a'] += 1
+    return out['src'], out['col0'], out['f'], out['post']
+
+
+def _stage_b_op(tables, dims, src, post):
+    """K2, counted: the (J, N, B) columns from :func:`stage_b_inputs`."""
+    (N, conp, n_src, n_post), B = dims, src.shape[-1]
+    dev = src.device
+    _check('src', src, (n_src, B), F64, dev)
+    _check('post', post, (n_post, B), F64, dev)
+    ptrs = table_ptrs(tables, F64, dev, 'stage B')
+    lib = load()
+    out = torch.empty((N - 1, N, B), dtype=F64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pyjac_stage_b(*ptrs, _ptr(src), _ptr(post), _ptr(out), N,
+                                conp, B, _stream(dev))
+    _raise_on(err, 'stage B kernel')
+    launches['stage_b'] += 1
+    return out
+
+
+def _dense_fused_op(tables, dims, y_t, P_t, plan=None):
+    """K4, counted: (Jt, f) from :func:`dense_inputs`."""
+    return _launch_dense(tables, dims, y_t, P_t, F64, plan)
+
+
+_OPS.impl('stage_a', _stage_a_op, 'CUDA')
+_OPS.impl('stage_b', _stage_b_op, 'CUDA')
+_OPS.impl('dense_fused', _dense_fused_op, 'CUDA')
+
+
+@torch.library.register_fake('pyjac_tpu_torch::stage_a', lib=_OPS)
+def _(tables, dims, y_t, P_t, plan=None):
+    B = y_t.shape[-1]
+    return tuple(y_t.new_empty((rows, B))
+                 for rows in (dims[12], dims[0], dims[0], dims[13]))
+
+
+@torch.library.register_fake('pyjac_tpu_torch::stage_b', lib=_OPS)
+def _(tables, dims, src, post):
+    return src.new_empty((dims[0] - 1, dims[0], src.shape[-1]))
+
+
+@torch.library.register_fake('pyjac_tpu_torch::dense_fused', lib=_OPS)
+def _(tables, dims, y_t, P_t, plan=None):
+    N, B = dims[0], y_t.shape[-1]
+    return y_t.new_empty((N, N, B)), y_t.new_empty((N, B))

@@ -203,6 +203,7 @@ PORT_MODULES = [
     'pyjac_tpu_torch.core.pack',
     'pyjac_tpu_torch.bench',
     'pyjac_tpu_torch.integrate',
+    'pyjac_tpu_torch.libgen',
     'pyjac_tpu_torch.ops.common',
     'pyjac_tpu_torch.ops.dydt',
     'pyjac_tpu_torch.ops.jacobian',
@@ -215,6 +216,8 @@ PORT_MODULES = [
     'pyjac_tpu_torch.ops.sparse',
     'pyjac_tpu_torch.ops.thermo',
     'pyjac_tpu_torch.parallel.batch',
+    'pyjac_tpu_torch.parallel.mesh',
+    'pyjac_tpu_torch.profiling',
     'pyjac_tpu_torch.runtime',
     'pyjac_tpu_torch.runtime.stateio',
     'pyjac_tpu_torch.testers.__main__',

@@ -1,0 +1,186 @@
+"""The port's ``profiling`` module against the JAX package's, on the CPU.
+
+``cost_estimate`` is the JAX package's closed form, so it must give the
+same numbers; ``speed_of_light`` reads this card's float64 peaks;
+``timed`` and ``trace`` work off the card; and ``roofline`` reproduces
+the bound of every port kernel that ``PERF.md`` section 6 reports, from
+the modules' tables and the outputs' shapes alone.
+"""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from pyjac_tpu.core.mech import Mechanism as JMechanism
+from pyjac_tpu.core.pack import pack as jpack
+from pyjac_tpu.profiling import cost_estimate as jcost_estimate
+from pyjac_tpu_torch import profiling
+from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian, finish,
+                                              source_stack, state_thermo)
+from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian
+from pyjac_tpu_torch.ops.jacobian_f32 import F32Jacobian
+from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
+                                                 stage_a_reference)
+from pyjac_tpu_torch.testers.synthetic import (packed_from_text,
+                                               plausible_mechanism,
+                                               random_states,
+                                               synthetic_mechanism)
+
+torch.set_num_threads(1)
+
+TEXTS = {'flagship': lambda: plausible_mechanism(53, 325, seed=42),
+         'synth': lambda: synthetic_mechanism(9, 24, seed=7),
+         'synth53': lambda: synthetic_mechanism(53, 325, seed=7),
+         'usc': lambda: plausible_mechanism(111, 784, seed=5),
+         '654': lambda: plausible_mechanism(654, 2716, seed=5)}
+
+_MECHS = {}
+
+
+def _mech(name):
+    """(mechanism, packed) of the port, built once per name."""
+    if name not in _MECHS:
+        _MECHS[name] = packed_from_text(TEXTS[name]())
+    return _MECHS[name]
+
+
+@pytest.mark.parametrize('name', ['flagship', 'synth'])
+@pytest.mark.parametrize('kernel', ['rates', 'dydt', 'jacobian'])
+def test_cost_estimate_matches_jax(name, kernel, tmp_path):
+    """The same closed form, field for field, in float64 and float32."""
+    path = tmp_path / 'm.inp'
+    path.write_text(TEXTS[name]())
+    jp = jpack(JMechanism.from_files(str(path)))
+    p = _mech(name)[1]
+    for dtype_bytes in (8, 4):
+        got = profiling.cost_estimate(p, kernel, dtype_bytes)
+        want = jcost_estimate(jp, kernel, dtype_bytes)
+        assert (got.flops_per_state, got.transcendentals_per_state,
+                got.bytes_per_state) == (want.flops_per_state,
+                                         want.transcendentals_per_state,
+                                         want.bytes_per_state)
+        assert got.arithmetic_intensity() == want.arithmetic_intensity()
+    with pytest.raises(ValueError):
+        profiling.cost_estimate(p, 'nope')
+
+
+def test_speed_of_light_uses_h100_peaks():
+    """The defaults are one H100 SXM in float64: HBM3 3.35 TB/s, FP64
+    outside the tensor cores 34 TFLOP/s (FP32 67 TFLOP/s)."""
+    assert (profiling.HBM_BYTES_S, profiling.F64_FLOP_S,
+            profiling.F32_FLOP_S) == (3.35e12, 34e12, 67e12)
+    p = _mech('flagship')[1]
+    c = profiling.cost_estimate(p, 'jacobian', 8)
+    sol = profiling.speed_of_light(p)
+    assert sol['compute_bound_evals_per_sec'] == 34e12 / c.flops_per_state
+    assert sol['memory_bound_evals_per_sec'] == 3.35e12 / c.bytes_per_state
+    assert sol['arithmetic_intensity'] == c.arithmetic_intensity()
+
+
+def test_timed_and_trace_on_the_cpu(tmp_path):
+    """``timed`` returns the result and a positive time per call off the
+    card; ``trace`` writes a Chrome trace of the block."""
+    from pyjac_tpu_torch.ops.dydt import dydt
+    mech, p = _mech('synth')
+    y, _, P = random_states(mech, 16, seed=3)
+    y, P = torch.as_tensor(y), torch.as_tensor(P)
+    out, dt = profiling.timed(lambda a, b: dydt(p, 0.0, a, b), P, y, iters=2)
+    assert dt > 0 and out.shape == (16, p.n_species)
+    assert torch.equal(out, dydt(p, 0.0, P, y))
+    with profiling.trace(str(tmp_path / 'tr')) as prof:
+        dydt(p, 0.0, P, y)
+    assert prof.key_averages()
+    trace = json.loads((tmp_path / 'tr' / 'trace.json').read_text())
+    assert trace['traceEvents']
+
+
+# PERF.md section 6's bound column: (kernel, module, mechanism, B, ms)
+PERF_BOUNDS = [
+    ('stage_a', 'sparse', 'flagship', 131072, 0.761),
+    ('stage_a', 'sparse', 'synth53', 131072, 0.967),
+    ('stage_a', 'sparse', 'usc', 32768, 0.447),
+    ('stage_b', 'sparse', 'flagship', 131072, 1.573),
+    ('stage_b_x', 'unfused', 'flagship', 131072, 1.874),
+    ('fused_f32', 'f32', 'flagship', 262144, 0.913),
+    ('dense_fused', 'dense', 'flagship', 32768, 0.228),
+    ('big_parts', 'big', '654', 1024, 0.071),
+    ('big_cols_sparse', 'big', '654', 1024, 1.118),
+    ('big_cols_dense', 'big_dense', '654', 512, 0.552),
+]
+
+MODULES = {
+    'sparse': lambda p: SparseJacobian(p, device='cpu'),
+    'unfused': lambda p: SparseJacobian(p, fuse_gather=False, device='cpu'),
+    'f32': lambda p: F32Jacobian(p, device='cpu'),
+    'dense': lambda p: DenseJacobian(p, device='cpu'),
+    'big': lambda p: BigJacobian(p, device='cpu'),
+    'big_dense': lambda p: BigJacobian(p, sparse_cols=False, device='cpu'),
+}
+
+
+@pytest.mark.parametrize('kernel,module,name,B,ms', PERF_BOUNDS)
+def test_roofline_reproduces_perf_bounds(kernel, module, name, B, ms):
+    """Each row of PERF.md's table at its stated mechanism and B, to the
+    table's 3 decimals, bound by bytes (K3's and K4's operations, K7's
+    nonzero products, each under that)."""
+    row = profiling.roofline(MODULES[module](_mech(name)[1]), B)[kernel]
+    assert round(row['bound_ms'], 3) == ms
+    assert row['bound_by'] == 'bytes'
+    assert row['bound_ms'] == row['bytes'] / 3.35e12 * 1e3
+
+
+def test_roofline_counts_the_outputs_bytes():
+    """The bytes ``roofline`` counts from shapes are those of the real
+    inputs and outputs, computed by the plain versions on the 9/24
+    synth at B = 8 (each read once, written once)."""
+    mech, p = _mech('synth')
+    B = 8
+    y, _, P = random_states(mech, B, seed=3)
+    y_t = torch.as_tensor(np.ascontiguousarray(y.T))
+    P_t = torch.as_tensor(P[None].copy())
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+
+    sj = SparseJacobian(p, device='cpu')
+    a = stage_a_reference(p, y_t, P_t, True)
+    tabs = [t for k, t in sj._buffers.items()
+            if k.startswith(('kp_', 'kf_', 'ka_'))]
+    rows = profiling.roofline(sj, B)
+    assert rows['stage_a']['bytes'] == nb(y_t, P_t, *tabs, *a.values())
+    cols = sj.stage_b(a['src'], a['post'])
+    assert rows['stage_b']['bytes'] == nb(
+        a['src'], a['post'], sj.col_ptr, sj.col_src, sj.col_coef,
+        sj.inv_mw, cols)
+
+    dj = DenseJacobian(p, device='cpu')
+    Jt, f = dj.call_tr(y_t, P_t)
+    tabs = [t for k, t in dj._buffers.items() if k.startswith(('kp_', 'kf_'))]
+    assert profiling.roofline(dj, B)['dense_fused']['bytes'] == nb(
+        y_t, P_t, Jt, f, *tabs)
+
+    bj = BigJacobian(p, device='cpu')
+    st = state_thermo(bj.packed, y_t, P_t, True)
+    roles = bj.parts(st)
+    post = finish(bj.packed, st, roles, True)['post']
+    p1c = bj.assemble_p1c(source_stack(roles, bj.Sf + bj.Sp, bj.eff_val))
+    rows = profiling.roofline(bj, B)
+    tabs = [t for k, t in bj._buffers.items() if k.startswith('kp_')]
+    assert rows['big_parts']['bytes'] == nb(st['rows'], *tabs, roles)
+    cols = bj.columns(roles, post)
+    assert rows['big_cols_sparse']['bytes'] == nb(
+        p1c, post, bj.ks_ptr, bj.ks_src, bj.ks_coef, bj.inv_mw, cols)
+    with pytest.raises(TypeError):
+        profiling.roofline(torch.nn.Linear(2, 2), B)
+
+
+def test_chip_smoke_takes_bounds_from_roofline():
+    """``chip_smoke.py`` keeps no bound arithmetic of its own: its
+    ``bound_ms`` come from ``profiling.roofline``, its peaks from here."""
+    src = (pathlib.Path(__file__).resolve().parent.parent /
+           'chip_smoke.py').read_text()
+    assert 'roofline(' in src
+    for gone in ('HBM_BYTES_S = ', 'F64_FLOP_S = ', 'def stage_a_bound',
+                 'def dense_bound', 'def dense_ops', 'def nbytes'):
+        assert gone not in src, gone
