@@ -142,7 +142,22 @@ non-zero at once:
     at B = 32768, ``sharded_jacobian_dd_xla_sparse`` (K1 + K2) at
     B = 131072 and the plain ``sharded_step`` at B = 4096, each equal to
     the unsharded call bit for bit, its norm the JAX package's,
-    max|J| + max|dy/dt| (one shard), one launch of each of its kernels.
+    max|J| + max|dy/dt| (one shard), one launch of each of its kernels;
+18. the wide mechanism (``testers.synthetic.wide_mechanism``: 10
+    reactant and 10 product slots, an 18 x 5 Chebyshev fit; the kernels'
+    wide path) at B = 4099: K1 + K2, K1 under the global placement, K2x,
+    K4 and K3 (the planner's tile and the global placement), K5 + K6 and
+    K5 + K7, each at its phase's gates against its plain version; each
+    module's path with its launch counters; each kernel alone beside its
+    plain version, its bound and a library call;
+19. the examples: ``examples.ignition_delay`` on a small grid (K4 once
+    per loop iteration) against the same call on the CPU, and
+    ``examples.multichip_batch`` on a mesh of this card (K1 + K2 once per
+    chunk), each against its unsharded call;
+20. the float32 library: ``generate_library(dtype='f32')``, its plain
+    artifacts (float32 in, float64 out) against the live float64
+    functions and its kernel entry ``jacobian_dd_sparse`` against the
+    live module.
 
 Phases 12-13 run between 10 and 11: a ``torch.profiler`` session after
 phase 11's traced integrate call records no kernels on the card.
@@ -163,6 +178,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -187,6 +203,7 @@ from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
     state_thermo)
 from pyjac_tpu_torch.ops.jacobian_dense import (  # noqa: E402
     DenseJacobian, dense_reference)
+from pyjac_tpu_torch.ops import jacobian_f32  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_f32 import (  # noqa: E402
     F32Jacobian, f32_reference)
 from pyjac_tpu_torch.ops.jacobian_sparse import (  # noqa: E402
@@ -198,7 +215,9 @@ from pyjac_tpu_torch.testers.performance import (  # noqa: E402
     PerfConfig, check_step_file, method_precision, performance_tester)
 from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
     flagship, packed_from_text, plausible_mechanism, random_states,
-    synthetic_mechanism)
+    synthetic_mechanism, wide_mechanism)
+from pyjac_tpu_torch.examples import (  # noqa: E402
+    ignition_delay as ex_ignition, multichip_batch as ex_multichip)
 
 F64 = torch.float64
 DATA = os.path.join(HERE, 'tests', 'data')
@@ -250,6 +269,13 @@ TOL_CROSS = 1e-8          # BigJacobian vs SparseJacobian (K1/K2), floored;
 #                           1.33e-9 floored at USC-II CONP on 4096 states,
 #                           the pre-tile kernel the same (same arithmetic)
 BIG_CLASSES = ('usc', '654')
+# mechanisms whose J temperature row cancels beyond the floored scale,
+# held on the summed magnitude of its terms alone (TOL_BIG_JT; phase 3's
+# whole-J floored gate skips them): the big classes, and the wide
+# mechanism, whose reactions each pair species of one heat capacity and
+# so release little heat (K2 there reads 2.3e-9 floored on that row,
+# 2.7e-16 of its terms, on an NVIDIA H100 80GB HBM3 at 700 W)
+T_ROW_CANCELS = BIG_CLASSES + ('wide',)
 TOL_INTEGRATE = 1e-9      # integrate jacobian='dd' vs 'xla': endpoints
 #                           floored at 1e-10 of each state's largest entry
 # K3 (float32), the JAX package's f32 metric (tests/test_pallas_jacobian.py:
@@ -503,7 +529,7 @@ def phase_kernels_vs_plain(cases, device, card):
                                      ref['post'], conp)
             cgot = sj.stage_b(ref['src'], ref['post'])
             gate_stage_b(sj, tag, cgot, cref, ref,
-                         whole=name not in BIG_CLASSES)
+                         whole=name not in T_ROW_CANCELS)
             if conp and main:
                 res = dict(stage_a=max_a,
                            stage_b=float((cgot - cref).abs().max()))
@@ -1626,7 +1652,9 @@ def phase_sass_f64(dump):
     print('phase 2b SASS float64 instructions: K3 (float) %s, K4 (double) '
           '%s (waited %.1f s for the dump)' % (
               sorted(k3.values()), sorted(k4.values()), waited))
-    check(len(k3) == 8 and len(k4) == 8,
+    # one instantiation per pressure-modification body (2), slot layout
+    # (2 + 2, the run-time counts, the wide path) and placement (2)
+    check(len(k3) == 12 and len(k4) == 12,
           'dense_fused_kernel instantiations not found: %s' % sorted(counts))
     check(all(c == 0 for c in k3.values()),
           'K3 holds float64 SASS instructions: %s' % k3)
@@ -1705,6 +1733,46 @@ def f32_own_errs(got, gf, ref, rf, gross, chunk=32768):
     return errs
 
 
+def serial_mean_weight(C, Yr):
+    """``jacobian_f32.mean_weight`` in K3's order (``state_phase``,
+    ``csrc/kinetics.cuh``): sum(Y) and sum(Y / W) one species after
+    another."""
+    sY = torch.zeros_like(Yr[:1])
+    sYw = torch.zeros_like(Yr[:1])
+    for n in range(Yr.shape[0]):
+        sY = sY + Yr[n:n + 1]
+        sYw = sYw + Yr[n:n + 1] * C['inv_mw'][n]
+    y_N = 1.0 - sY
+    return torch.cat([Yr, y_N], 0), sYw + y_N * C['inv_mw'][-1]
+
+
+def f32_wide_gates(packed, y_t, param, conp, got, gf, ref, rf, gross, tag):
+    """Phase 18's own-scale gates for K3.  The wide mechanism's paired
+    species hold its reactions near equilibrium, where a state's species
+    rows of col0 and f cancel beyond float32, and CONP's density carries
+    the mean molecular weight's rounding into every rate: K3 sums it one
+    species after another, the plain version as JAX's kernel does (a
+    reduction and a matrix product), which put them 4.6e-4 apart in col0's
+    species rows (NVIDIA H100 80GB HBM3, 700 W; CONV read 1.5e-5).  So
+    K3 is gated, at phase 12's limits, against the plain version with the
+    mean weight summed in K3's order (:func:`serial_mean_weight`); its
+    readings against the plain version as it stands, and K3's and the
+    plain version's against float64 (``dense_reference`` on the same
+    inputs), are printed beside them."""
+    with mock.patch.object(jacobian_f32, 'mean_weight', serial_mean_weight):
+        ref_k, rf_k = f32_reference(packed, y_t, param, conp)
+    J64, f64 = dense_reference(packed, y_t.double(), param.double(), conp)
+    errs = f32_own_errs(got, gf, ref_k, rf_k, gross)
+    plain = f32_own_errs(got, gf, ref, rf, gross)
+    kern64 = f32_own_errs(got, gf, J64, f64, gross)
+    plain64 = f32_own_errs(ref, rf, J64, f64, gross)
+    for nm in errs:
+        print('  %s %-11s K3 against the plain version as it stands %.3e; '
+              'against float64: K3 %.3e, the plain version %.3e' % (
+                  tag, nm, plain[nm][0], kern64[nm][0], plain64[nm][0]))
+    return errs
+
+
 def f32_scale_shares(ref):
     """On every 64th state of the plain version's J: the median |entry| /
     the JAX metric's scale, and the share of entries above TOL_F32 x that
@@ -1734,13 +1802,16 @@ def planted_faults(got, gf, ref, rf, gross, tag):
         check(own[0] > own[1], 'the %s gate missed a planted fault' % nm)
 
 
-def phase_f32_kernels(cases, device, card):
+def phase_f32_kernels(cases, device, card, wide=False):
     """Phase 12: K3 against ``f32_reference`` on the same float32 inputs,
     CONP and CONV, by the JAX metric and on each state's own scales
     (:func:`f32_own_errs`; on the main case also :func:`planted_faults`);
-    K3 against the float64 ``SparseJacobian``; the flagship
-    golden through ``F32Jacobian``.  The case marked ``main`` gives the
-    row's ``max_abs_err`` (CONP, J and f, finite entries)."""
+    K3 against the float64 ``SparseJacobian``; the flagship golden
+    through ``F32Jacobian``.  With ``wide`` (phase 18, the wide
+    mechanism), no golden, and the own-scale gates hold K3 to the plain
+    version in K3's summation order (:func:`f32_wide_gates`).  The case
+    marked ``main`` gives the row's ``max_abs_err`` (CONP, J and f,
+    finite entries)."""
     check(torch.backends.cuda.matmul.allow_tf32 is False and
           torch.get_float32_matmul_precision() == 'highest',
           'float32 matmuls would run in TF32')
@@ -1764,9 +1835,15 @@ def phase_f32_kernels(cases, device, card):
                                           B, plan_tag(plan))
             gate_f32(tag, {'J': eJ[:2], 'f': ef[:2]})
             gross = f32_gross(packed, y_t, param, conp)
-            errs = f32_own_errs(got, gf, ref, rf, gross)
+            if wide:
+                errs = f32_wide_gates(packed, y_t, param, conp, got, gf, ref,
+                                      rf, gross, tag)
+            else:
+                errs = f32_own_errs(got, gf, ref, rf, gross)
             for nm, (err, tol) in errs.items():
-                print('  %s %-11s %.3e (<= %.0e)' % (tag, nm, err, tol))
+                print('  %s %-11s %.3e (<= %.0e)%s' % (
+                    tag, nm, err, tol,
+                    ' (plain version in K3\'s order)' if wide else ''))
             for nm, (err, tol) in errs.items():
                 check(err <= tol, '%s %s: %.3e > %.0e' % (tag, nm, err, tol))
             if conp and main:
@@ -1792,6 +1869,9 @@ def phase_f32_kernels(cases, device, card):
                       'f': f32_err(gf.double(), f64)[:2]})
             del got, gf, J64, f64
             torch.cuda.empty_cache()
+    if wide:
+        print('phase 12 K3 vs plain: ok (%s)' % card)
+        return res
     # the flagship golden: J at the f32 metric; dy/dt (PaSR states near
     # equilibrium cancel beyond float32) at twice the JAX kernel's reading
     packed = cases[0][1]
@@ -2395,12 +2475,297 @@ def phase_mesh(packed, device, card):
     return {'counts': total}
 
 
-def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh):
+# phase 18: the batch of the wide mechanism, ragged (a tile's worth of
+# states short of 4096)
+WIDE_B = 4099
+# phase 18's paths: (name, the module of a mechanism on a device, the
+# kernels its call launches)
+WIDE_PATHS = (
+    ('wide', lambda p, d: SparseJacobian(p, device=d), ('stage_a',
+                                                          'stage_b')),
+    ('wide_unfused', lambda p, d: SparseJacobian(p, fuse_gather=False,
+                                                 device=d),
+     ('stage_a', 'stage_b_x')),
+    ('wide_dense', lambda p, d: DenseJacobian(p, device=d), ('dense_fused',)),
+    ('wide_f32', lambda p, d: F32Jacobian(p, device=d), ('fused_f32',)),
+    ('wide_big', lambda p, d: BigJacobian(p, device=d),
+     ('big_parts', 'big_cols_sparse')),
+    ('wide_big_dense', lambda p, d: BigJacobian(p, device=d, **BIG_DENSE),
+     ('big_parts', 'big_cols_dense')))
+
+
+def phase_wide(packed, device, card):
+    """Phase 18: the wide mechanism (``testers.synthetic.wide_mechanism``:
+    10 reactant and 10 product slots, an 18 x 5 Chebyshev fit, PLOG,
+    Troe, Lindemann, third-body), which runs the kernels' wide path (no
+    per-thread slot or Chebyshev array, ``csrc/kinetics.cuh``), at
+    B = ``WIDE_B`` (ragged): K1 + K2 at phase 3's gates; K1 under the
+    global placement at 3b's; K2x on K1's outputs at 9b's; K4 and K3
+    under the planner's tile and the global placement at 9a's and 12's
+    (K3's own-scale gates against the plain version in K3's summation
+    order, :func:`f32_wide_gates`); K5 + K6 and K5 + K7 at 6's.  Then each module's path (one warm-up,
+    best of 3) with its launch counters set to 0 just before and read
+    just after, and each kernel alone beside its plain version, its
+    bound and, where there is one, a PyTorch library call."""
+    t0 = time.perf_counter()
+    B = WIDE_B
+    print('phase 18 wide mechanism: %d species / %d reactions, %d + %d '
+          'slots, Chebyshev %d x %d, B=%d (%s)' % (
+              packed.n_species, packed.n_reactions, packed.reac_sp.shape[1],
+              packed.prod_sp.shape[1], *packed.cheb_coef.shape[1:], B, card))
+    errs = phase_kernels_vs_plain((('wide', packed, B, True),), device, card)
+    phase_stage_a_tiles((('wide', packed, B, 'global'),), device, card)
+    y_t, P_t = big_states(packed, B, device)
+    sx = SparseJacobian(packed, fuse_gather=False, device=device)
+    a = sx.stage_a(y_t, P_t)
+    got, ref = k2x_vs_plain(sx, a)
+    torch.cuda.synchronize()
+    err = floored(got, ref, 1e-10)
+    print('  K2x wide B=%d: J floored@1e-10 %.3e (<= %.0e)' % (B, err, TOL_J))
+    check(err <= TOL_J, 'K2x wide: %.3e > %.0e' % (err, TOL_J))
+    errs['stage_b_x'] = float((got - ref).abs().max())
+    del got, ref
+    errs.update(phase_dense_kernels((('wide', packed, B, True, None),
+                                     ('wide', packed, B, False, 'global')),
+                                    device, card))
+    errs.update(phase_f32_kernels((('wide', packed, B, True, None),
+                                   ('wide', packed, B, False, 'global')),
+                                  device, card, wide=True))
+    errs.update(phase_big_kernels((('wide', packed, B, ('K6', 'K7'),
+                                    ('big_parts', 'big_cols_sparse',
+                                     'big_cols_dense')),), device, card))
+
+    # each path through its module, counted and timed
+    y32, P32 = y_t.float(), P_t.float()
+    mods, counts = {}, {}
+    for path, build, need in WIDE_PATHS:
+        mod = mods[path] = build(packed, device)
+        args = (y32, P32) if path == 'wide_f32' else (y_t, P_t)
+        ms, c, _ = timed_path(mod, *args, need)
+        counts[path] = c
+        print('  path %s: best of 3 %.3f ms, launches %s' % (
+            path, ms, {k: v for k, v in c.items() if v}))
+        check(all(v == 0 for k, v in c.items() if k not in need),
+              '%s launched %s' % (path, c))
+
+    # each kernel alone, beside its plain version, bound, library call
+    sj, dj, fj = mods['wide'], mods['wide_dense'], mods['wide_f32']
+    bj, bd = mods['wide_big'], mods['wide_big_dense']
+    p1 = sx.stage_gather(a['src'])
+    rows = torch.arange(sx.J * sx.Rmax, device=device).view(sx.J, sx.Rmax)
+    st = state_thermo(bj.packed, y_t, P_t, True)
+    roles = bj.parts(st)
+    post = finish(bj.packed, st, roles, True)['post']
+    p1c = bj.assemble_p1c(source_stack(roles, bj.Sf + bj.Sp, bj.eff_val))
+    td = bd.tab('kd_')
+    P_all = torch.cat([p1_dense(roles, bd.Sf, bd.Sp, td['spf'], td['spp'],
+                                td['eff'], td['pd'], j)
+                       for j in range(bd.J)], 1)
+    nuT = td['nu_net'].T.contiguous()
+    timed = (
+        ('stage_a', sj, lambda: sj.stage_a(y_t, P_t),
+         lambda: stage_a_reference(packed, y_t, P_t, True), None),
+        ('stage_b', sj, lambda: sj.stage_b(a['src'], a['post']),
+         lambda: stage_b_reference(sj.gidx, sj.nuc, sj.inv_mw, a['src'],
+                                   a['post'], True),
+         lambda: torch.bmm(sj.nuc, a['src'][sj.gidx])),
+        ('stage_b_x', sx, lambda: sx.stage_b_x(p1, a['post']),
+         lambda: stage_b_reference(rows, sx.nuc, sx.inv_mw, p1, a['post'],
+                                   True),
+         lambda: torch.bmm(sx.nuc, p1.view(sx.J, sx.Rmax, B))),
+        ('dense_fused', dj, lambda: dj.call_tr(y_t, P_t),
+         lambda: dense_reference(packed, y_t, P_t, True), None),
+        ('fused_f32', fj, lambda: fj.call_tr(y32, P32),
+         lambda: f32_reference(packed, y32, P32, True), None),
+        ('big_parts', bj, lambda: bj.parts(st),
+         lambda: parts_reference(bj.packed, st, True), None),
+        ('big_cols_sparse', bj, lambda: kernels.big_cols_sparse(bj, p1c, post),
+         lambda: cols_sparse_reference(p1c, bj.ks_nuc, bj.inv_mw, post, True),
+         lambda: torch.bmm(bj.ks_nuc, p1c.view(bj.J, bj.Rmax, B))),
+        ('big_cols_dense', bd, lambda: kernels.big_cols_dense(bd, roles, post),
+         lambda: cols_dense_reference(roles, td, bd.inv_mw, post, True),
+         lambda: torch.matmul(nuT, P_all)))
+    ms, bounds = {}, {}
+    for name, mod, kern, plain, lib in timed:
+        ms[name] = best_ms(kern)
+        ms[name + '_plain'] = best_ms(plain, reps=2)
+        if lib is not None:
+            ms[name + '_lib'] = best_ms(lib)
+        bounds[name] = bound_of(mod, B, name)
+        print('  %s (wide): kernel %.3f ms, plain version %.3f ms, library '
+              'call %s ms, bound %.3f ms (%s); max |kernel - plain| %.3e '
+              '(B=%d, %s)' % (
+                  name, ms[name], ms[name + '_plain'],
+                  '%.3f' % ms[name + '_lib'] if lib is not None else 'none',
+                  bounds[name][0], bounds[name][1], errs[name], B, card))
+    print('phase 18 wide mechanism: ok, %.1f s (%s)' % (
+        time.perf_counter() - t0, card))
+    del mods, sj, sx, dj, fj, bj, bd, a, p1, st, roles, post, p1c, P_all
+    torch.cuda.empty_cache()
+    return {'errs': errs, 'ms': ms, 'bounds': bounds, 'counts': counts}
+
+
+# phase 19's ignition grid: temperatures, unburnt flagship rows, bisection
+# points, horizon [s], tolerance (the CPU reference runs the same grid;
+# rtol 1e-5 takes a third of 1e-7's steps, to the same delays here).  Both
+# states ignite well inside the horizon: 2.03e-4 and 1.56e-5 s on the CPU
+# (tests/test_torch_examples.py), a few bisection brackets from either end
+IGN_ARGS = ['--temps', '2', '--mixtures', '1', '--points', '4',
+            '--t-range', '950', '1000', '--t-end', '4e-4', '--rtol', '1e-5']
+# multichip_batch's chunked batch on the card: states, chunk
+MULTI_ARGS = ['--states', '10000', '--chunk', '2048']
+
+
+def phase_examples(device, card):
+    """Phase 19: the examples on the card, each through its ``main``
+    with its launch counters set to 0 just before and read just after.
+    ``ignition_delay`` on ``IGN_ARGS``' grid (its stage Jacobian from K4,
+    one launch per loop iteration; no other kernel) against the same call
+    with ``--device cpu``: every state ignited on both (a probe found its
+    delay: ``examples.ignition_delay.ignited``), and the delays within one
+    bisection bracket of the CPU's (the two stage Jacobians round apart,
+    so a probe whose T sits on the threshold may fall either side).  ``multichip_batch`` on a
+    mesh of this card (the NCCL group of one it makes), ``MULTI_ARGS``:
+    its sharded step equal to the unsharded ``jacobian_and_dydt`` bit for
+    bit with JAX's norm, its chunked ``BatchEvaluator.jacobian_dd``
+    launching K1 + K2 once per chunk and equal to one ``SparseJacobian``
+    call bit for bit."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    out = ex_ignition.main(IGN_ARGS)
+    ign = dict(kernels.launches)
+    t1 = time.perf_counter()
+    ref = ex_ignition.main(IGN_ARGS + ['--device', 'cpu'])
+    t2 = time.perf_counter()
+    bracket = out['t_end'] / 2 ** (int(math.log2(out['points'])) + 4)
+    diff = float(np.abs(out['tau'] - ref['tau']).max())
+    print('phase 19 ignition_delay: delays %s ms (CPU %s ms), ignited %s '
+          '(CPU %s), max |diff| %.3e s (<= one bracket %.3e s), equal: %s; '
+          'launches %s; %.1f s on the card, %.1f s on the CPU (%s)' % (
+              (out['tau'] * 1e3).tolist(), (ref['tau'] * 1e3).tolist(),
+              out['ignited'].tolist(), ref['ignited'].tolist(), diff,
+              bracket, bool(np.array_equal(out['tau'], ref['tau'])),
+              {k: v for k, v in ign.items() if v}, t1 - t0, t2 - t1, card))
+    check(np.isfinite(out['tau']).all() and out['ignited'].all() and
+          ref['ignited'].all(), 'ignition_delay: a state did not ignite '
+          'within t_end: %s (CPU %s)' % (out['tau'], ref['tau']))
+    check(diff <= bracket, 'ignition_delay: card vs CPU %.3e s' % diff)
+    check(ign['dense_fused'] > 0 and all(
+        v == 0 for k, v in ign.items() if k != 'dense_fused'),
+        'ignition_delay launched %s' % ign)
+
+    kernels.reset_launches()
+    m = ex_multichip.main(MULTI_ARGS)
+    multi = dict(kernels.launches)
+    packed = m['packed']
+    J0, f0 = jacobian_and_dydt(packed, 0.0, torch.as_tensor(m['P'],
+                                                            device=device),
+                               torch.as_tensor(m['y'], device=device))
+    same = torch.equal(m['J'], J0) and torch.equal(m['f'], f0)
+    want = float(J0.abs().max()) + float(f0.abs().max())
+    del J0, f0
+    J1, f1 = SparseJacobian(packed, device=device)(m['y_big'], m['P_big'])
+    same_big = (np.array_equal(m['J_big'], J1.cpu().numpy()) and
+                np.array_equal(m['f_big'], f1.cpu().numpy()))
+    del J1, f1
+    # one launch of K1 and of K2 per chunk and shard
+    n_chunks = -(-len(m['y_big']) // int(MULTI_ARGS[3])) * m['mesh'].size
+    print('phase 19 multichip_batch: mesh %s; sharded step equal to the '
+          'unsharded call: %s, norm %.6e (JAX\'s %.6e); chunked %d states, '
+          '%d chunk shards, equal to one SparseJacobian call: %s; launches '
+          '%s; %.1f s (%s)' % (
+              m['mesh'], same, float(m['norm']), want, len(m['y_big']),
+              n_chunks, same_big, {k: v for k, v in multi.items() if v},
+              time.perf_counter() - t2, card))
+    check(same and float(m['norm']) == want, 'multichip sharded step')
+    check(same_big, 'multichip chunked J / f differ from SparseJacobian')
+    check(multi == {k: n_chunks if k in ('stage_a', 'stage_b') else 0
+                    for k in multi}, 'multichip launched %s' % multi)
+    total = {k: ign[k] + multi[k] for k in ign}
+    return {'counts': total}
+
+
+def phase_libgen_f32(packed, device, card):
+    """Phase 20: ``libgen.generate_library(dtype='f32')`` on the card,
+    loaded with ``load_library``: the plain artifacts
+    (``jacobian_and_dydt`` CONP, ``rates`` CONV) take float32 states and
+    return float64, equal to the live float64 functions on those states
+    cast up at phase 16's 1e-12 of scale; the kernel entry
+    ``jacobian_dd_sparse`` keeps its float64 interface, a call launching
+    K1 and K2 once and equal to the live module's bit for bit
+    (``jacobian_dd``'s interface is the same code: tested on the CPU)."""
+    from pyjac_tpu_torch.libgen import load_library
+    from pyjac_tpu_torch.ops.rates import eval_rxn_rates, get_rxn_pres_mod
+    from pyjac_tpu_torch.ops.thermo import eval_conc_rho
+    t0 = time.perf_counter()
+    work = kernels.build_dir() / 'libgen_f32'
+    shutil.rmtree(work, ignore_errors=True)
+    generate_library(packed, str(work / 'conp'), ('jacobian_dd_sparse',
+                                                  'jacobian_and_dydt'),
+                     conp=True, device=device, dtype='f32')
+    generate_library(packed, str(work / 'conv'), ('rates',), conp=False,
+                     device=device, dtype='f32')
+    lib, conv = (load_library(str(work / k)) for k in ('conp', 'conv'))
+    check(lib['manifest']['dtype'] == conv['manifest']['dtype'] == 'f32',
+          'manifest dtype %s' % lib['manifest']['dtype'])
+    y_t, P_t = to_tr(*flagship_states(LIBGEN_PLAIN_B), device)
+    y32, P32 = y_t.T.float().contiguous(), P_t[0].float().contiguous()
+    y, P = y32.double(), P32.double()
+    rho32 = own_density(packed, y_t, P_t)[0].float()
+    rho = rho32.double()
+    T = y[:, 0]
+    _, _, pres, conc = eval_conc_rho(packed, T, rho, y[:, 1:])
+    J, f = jacobian_and_dydt(packed, 0.0, P, y)
+    pairs = (('jacobian_and_dydt', lib['jacobian_and_dydt'](P32, y32), (J, f)),
+             ('rates', conv['rates'](rho32, y32),
+              eval_rxn_rates(packed, T, pres, conc) +
+              (get_rxn_pres_mod(packed, T, pres, conc),)))
+    errs = {}
+    for name, got, want in pairs:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(g.dtype == F64 for g in got),
+              '%s: outputs %s' % (name, [g.dtype for g in got]))
+        errs[name] = max(float((g - w).abs().max() / (w.abs().max() + 1e-300))
+                         for g, w in zip(got, want))
+    counts = {}
+    for name, mod in (('jacobian_dd_sparse',
+                       SparseJacobian(packed, device=device)),):
+        kernels.reset_launches()
+        got = lib[name](y_t, P_t)
+        torch.cuda.synchronize()
+        c = dict(kernels.launches)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        same = all(torch.equal(g, w) for g, w in zip(got,
+                                                     mod.call_tr(y_t, P_t)))
+        print('phase 20 f32 library %s B=%d: float64 interface, equal to the '
+              'live module bit for bit: %s, launches %s (%s)' % (
+                  name, LIBGEN_PLAIN_B, same, {k: v for k, v in c.items()
+                                               if v}, card))
+        check(same, 'f32 library %s differs from the live module' % name)
+        check(c == {k: int(k in LIBGEN_KERNELS[name]) for k in c},
+              'f32 library %s launched %s' % (name, c))
+    print('phase 20 f32 library: float32 in, float64 out; max |diff| / max '
+          '|live f64 on the inputs cast up| %s (<= %.0e); %.1f s (%s)' % (
+              ', '.join('%s %.3e' % kv for kv in errs.items()),
+              TOL_LIBGEN_PLAIN, time.perf_counter() - t0, card))
+    for name, e in errs.items():
+        check(e <= TOL_LIBGEN_PLAIN, 'f32 plain artifact %s: %.3e' % (name, e))
+    return {'counts': counts}
+
+
+def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
+                wide, ex, lib32):
     """The kernels line: one row per ported TPU kernel.  ``launches`` is
     the count of the path at whose shape the kernel is timed;
     ``launches_by_path`` every path's run, the performance tester's
-    kernel methods, the exported library's process (``libgen``) and the
-    mesh steps (``mesh``) included."""
+    kernel methods, the exported library's process (``libgen``), the
+    mesh steps (``mesh``), the wide mechanism's paths (``wide*``), the
+    examples (``examples``) and the float32 library (``libgen_f32``)
+    included; ``wide`` the kernel at the wide mechanism's shape (phase
+    18): its time, its plain version's, its bound, the library call's and
+    its largest difference from its plain version."""
     flag = {'flagship': main_res['counts'],
             'flagship_unfused': integ['counts_unfused'],
             'synth53': synth['counts'],
@@ -2441,12 +2806,22 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh):
                 front['counts'][method][name]
         by_path['libgen'] = lib['counts'].get(name, 0)
         by_path['mesh'] = msh['counts'].get(name, 0)
+        for path, c in wide['counts'].items():
+            by_path[path] = c[name]
+        by_path['examples'] = ex['counts'][name]
+        by_path['libgen_f32'] = lib32['counts'].get(name, 0)
+        wm = wide['ms']
         rows.append(dict(
             name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
             replaces='pyjac_tpu/ops/' + line, launches=by_path[main_path],
             max_abs_err=errs[name], ms=ms[name], plain_ms=ms[name + '_plain'],
             bound_ms=b_ms, bound_by=b_by, library_ms=ms.get(name + '_lib'),
-            launches_by_path=by_path))
+            launches_by_path=by_path,
+            wide=dict(ms=wm[name], plain_ms=wm[name + '_plain'],
+                      bound_ms=wide['bounds'][name][0],
+                      bound_by=wide['bounds'][name][1],
+                      library_ms=wm.get(name + '_lib'),
+                      max_abs_err=wide['errs'][name])))
     return rows
 
 
@@ -2551,12 +2926,18 @@ def main():
     seconds['16'] = time.perf_counter() - t0 - sum(seconds.values())
     msh = phase_mesh(packed, device, card)
     seconds['17'] = time.perf_counter() - t0 - sum(seconds.values())
+    wide = phase_wide(packed_from_text(wide_mechanism())[1], device, card)
+    seconds['18'] = time.perf_counter() - t0 - sum(seconds.values())
+    ex = phase_examples(device, card)
+    seconds['19'] = time.perf_counter() - t0 - sum(seconds.values())
+    lib32 = phase_libgen_f32(packed, device, card)
+    seconds['20'] = time.perf_counter() - t0 - sum(seconds.values())
     print('phase seconds (host clock): %s, total %.1f s' % (
         ', '.join('%s %.1f' % kv for kv in seconds.items()),
         time.perf_counter() - t0))
 
     rows = kernel_rows(errs, main_res, synth, big, integ, f32, front, lib,
-                       msh)
+                       msh, wide, ex, lib32)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

@@ -31,7 +31,9 @@
 // machinery.  A mechanism with 2 reactant and 2 product slots (every one
 // the port ships) runs the instantiation with those counts fixed at
 // compile time, so the slot arrays stay in registers, not in local memory
-// (which lives in L1); other slot counts run the run-time loops.
+// (which lives in L1); other slot counts run the run-time loops, and a
+// side of more than 8 slots or a Chebyshev order above 16 the wide path,
+// which keeps no per-thread array (csrc/kinetics.cuh).
 
 #include "kinetics.cuh"
 
@@ -41,7 +43,7 @@
 #define N_DIMS 9
 
 // SL = 2: every reaction has 2 reactant and 2 product slots (else 0: the
-// counts of d)
+// counts of d; WIDE_SLOTS: the wide path, csrc/kinetics.cuh)
 template <bool HAS_PM, int SL>
 __global__ void __launch_bounds__(128)
 big_parts_kernel(PartsTables<double> t, PartsDims<double> d,
@@ -68,9 +70,7 @@ extern "C" int pyjac_big_parts(const void* const* tables, int n_tables,
                                int rows, int has_pm, double* roles,
                                void* stream) {
   if (n_tables != N_TABLES || n_dims != N_DIMS) return -1;
-  if (dims[2] > MAX_SLOTS || dims[3] > MAX_SLOTS || dims[5] > MAX_CHEB ||
-      dims[6] > MAX_CHEB || rows <= 0 || row0 < 0 || row0 + rows > dims[1])
-    return -1;
+  if (rows <= 0 || row0 < 0 || row0 + rows > dims[1]) return -1;
   const int threads = 128;
   const long long tiles = (B + threads - 1) / threads;
   if (tiles > 65535) return -1;
@@ -83,17 +83,19 @@ extern "C" int pyjac_big_parts(const void* const* tables, int n_tables,
   d.ln_pa_ru = ln_pa_ru;
   dim3 grid((unsigned)rows, (unsigned)tiles);
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wide = wide_tables(d.Sf, d.Sp, d.NT, d.NP);
   const bool two = d.Sf == 2 && d.Sp == 2;
+#define BP_LAUNCH(PM, SL) \
+  big_parts_kernel<PM, SL><<<grid, threads, 0, s>>>(t, d, st, B, roles)
   if (has_pm) {
-    if (two) big_parts_kernel<true, 2><<<grid, threads, 0, s>>>(t, d, st, B,
-                                                                 roles);
-    else big_parts_kernel<true, 0><<<grid, threads, 0, s>>>(t, d, st, B,
-                                                             roles);
+    if (wide) BP_LAUNCH(true, WIDE_SLOTS);
+    else if (two) BP_LAUNCH(true, 2);
+    else BP_LAUNCH(true, 0);
   } else {
-    if (two) big_parts_kernel<false, 2><<<grid, threads, 0, s>>>(t, d, st, B,
-                                                                  roles);
-    else big_parts_kernel<false, 0><<<grid, threads, 0, s>>>(t, d, st, B,
-                                                              roles);
+    if (wide) BP_LAUNCH(false, WIDE_SLOTS);
+    else if (two) BP_LAUNCH(false, 2);
+    else BP_LAUNCH(false, 0);
   }
+#undef BP_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -129,7 +129,7 @@ __host__ __device__ inline TileLayout tile_layout(int N, int R, int Sf,
 // state_tile, then (5) the columns; stops after phase LAST
 // (probes/dense_fused_phases.py cuts it there; the launcher's kernel runs
 // all five).  SL = 2: every reaction has 2 reactant and 2 product slots
-// (else 0: the counts of d).
+// (else 0: the counts of d; WIDE_SLOTS: the wide path, csrc/kinetics.cuh).
 template <typename S, bool HAS_PM, int SL, int LAST>
 __device__ __forceinline__ void dense_fused_tile(
     const DenseTables<S>& t, const PartsDims<S>& d, int has_spec, int TS,
@@ -238,9 +238,7 @@ static int launch_kernel(const DenseTables<S>& t, const PartsDims<S>& d,
 template <typename S, int LAST>
 static int launch(DENSE_FUSED_PARAMS(S)) {
   if (n_tables != N_TABLES || n_dims != N_DIMS || n_plan != N_PLAN) return -1;
-  if (dims[0] < 2 || dims[2] > MAX_SLOTS || dims[3] > MAX_SLOTS ||
-      dims[5] > MAX_CHEB || dims[6] > MAX_CHEB || B < 1)
-    return -1;
+  if (dims[0] < 2 || B < 1) return -1;
   const TileLayout L =
       tile_layout(dims[0], dims[1], dims[2], dims[3], dims[10]);
   const long long TS = plan[0], shared = plan[1], grid = plan[2];
@@ -261,9 +259,11 @@ static int launch(DENSE_FUSED_PARAMS(S)) {
   launch_kernel<S, PM, SL, SM, LAST>(t, d, dims[10], (int)TS, n_tiles,        \
                                      (unsigned)grid, smem, y, P, B, Jt, f,    \
                                      scratch, s)
-#define DF_SLOTS(PM, SM)                                   \
-  (dims[2] == 2 && dims[3] == 2 ? DF_LAUNCH(PM, 2, SM) \
-                                : DF_LAUNCH(PM, 0, SM))
+  const bool wide = wide_tables(d.Sf, d.Sp, d.NT, d.NP);
+#define DF_SLOTS(PM, SM)                                          \
+  (wide ? DF_LAUNCH(PM, WIDE_SLOTS, SM)                           \
+        : dims[2] == 2 && dims[3] == 2 ? DF_LAUNCH(PM, 2, SM)     \
+                                       : DF_LAUNCH(PM, 0, SM))
   if (dims[9])
     return shared ? DF_SLOTS(true, true) : DF_SLOTS(true, false);
   return shared ? DF_SLOTS(false, true) : DF_SLOTS(false, false);

@@ -24,6 +24,11 @@
 // -fmad=false, so kernel and plain version round alike.  All arrays are
 // batch-minor (rows, B): row r of state b is arr[r * B + b].
 //
+// Every table size runs: reaction_parts keeps the slot powers and the
+// Chebyshev basis in per-thread arrays of ARRAY_SLOTS / ARRAY_CHEB values,
+// and a mechanism with more slots or a higher Chebyshev order takes its
+// wide path (WIDE_SLOTS), which recomputes them where they are read.
+//
 // Every constant goes through S (S(0.67), S(RU), Num<S>::tiny()): a
 // double literal in a float expression would promote it to float64.  The
 // float32 instantiation takes the guards of the TPU's f32 kernel
@@ -34,8 +39,18 @@
 
 #include <cuda_runtime.h>
 
-#define MAX_SLOTS 8
-#define MAX_CHEB 16
+// the per-thread arrays of reaction_parts' slot and Chebyshev loops; a
+// mechanism past either runs the wide path, SF = SP = WIDE_SLOTS
+#define ARRAY_SLOTS 8
+#define ARRAY_CHEB 16
+#define WIDE_SLOTS (-1)
+
+// whether a mechanism of Sf / Sp slots and an NT x NP Chebyshev table
+// runs the wide path
+inline bool wide_tables(int Sf, int Sp, int NT, int NP) {
+  return Sf > ARRAY_SLOTS || Sp > ARRAY_SLOTS || NT > ARRAY_CHEB ||
+         NP > ARRAY_CHEB;
+}
 #define RU 8314.4621
 #define LN10 2.302585092994046
 #define TINY 1.0e-300
@@ -192,6 +207,121 @@ __device__ __forceinline__ S slot_products(const S* __restrict__ conc,
   return total;
 }
 
+// one slot's concentration power c^nu and its derivative nu c^(nu - 1),
+// as slot_products computes them.  slot_products keeps its own inline
+// copy of this arithmetic on purpose: routed through these helpers, the
+// array path compiles to other SASS (the flagship's K1 spills more and
+// runs slower), while the inline copy keeps its code.
+template <typename S>
+__device__ __forceinline__ S slot_power(S c, S nu, int has_frac) {
+  if (nu == S(0)) return S(1);
+  return has_frac ? Num<S>::frac_pow(c, nu) : ipow(c, (int)nu);
+}
+
+template <typename S>
+__device__ __forceinline__ S slot_dpower(S c, S nu, int has_frac) {
+  if (nu == S(0)) return S(0);
+  if (has_frac) return Num<S>::frac_dpow(c, nu);
+  return nu * ipow(c, (int)nu - 1);
+}
+
+// The wide path's slot_products, without arrays: the product of a side
+// (slot_product) and each slot derivative on demand (slot_deriv), the
+// other slots' powers recomputed, O(Sn^2) powers a side.  Every value is
+// slot_products', bit for bit: the same powers multiplied in the same
+// order.
+template <typename S>
+__device__ __forceinline__ S slot_product(const S* __restrict__ conc,
+                                          long long B, long long b, int Sn,
+                                          const int* sp, const S* nu,
+                                          int has_frac) {
+  S total = S(1);
+  for (int s = 0; s < Sn; ++s) {
+    const S p = slot_power(AT(conc, sp[s]), nu[s], has_frac);
+    total = s == 0 ? p : total * p;
+  }
+  return total;
+}
+
+template <typename S>
+__device__ __forceinline__ S slot_deriv(const S* __restrict__ conc,
+                                        long long B, long long b, int Sn,
+                                        const int* sp, const S* nu,
+                                        int has_frac, int s) {
+  S excl = S(1);
+  for (int s2 = 0; s2 < Sn; ++s2)
+    if (s2 != s)
+      excl = excl * slot_power(AT(conc, sp[s2]), nu[s2], has_frac);
+  return slot_dpower(AT(conc, sp[s]), nu[s], has_frac) * excl;
+}
+
+// The wide path's Chebyshev sums, without the basis arrays: the T basis
+// (with its derivative) carried through the loop over i, the P basis
+// re-run for each i, O(NT NP) operations and no storage.  Each basis
+// value comes from the array path's recurrence in its order, so the sums
+// are the array path's, bit for bit.
+template <typename S>
+__device__ __forceinline__ void cheb_sums_streamed(const S* coef, int NT,
+                                                   int NP, S Tred, S Pred,
+                                                   S& lgk, S& dlgk_T,
+                                                   S& dlgk_P) {
+  S t1 = S(0), t2 = S(0), dt1 = S(0), dt2 = S(0);  // T_{i-1}, T_{i-2}
+  for (int i = 0; i < NT; ++i) {
+    S tp = S(1), dtp = S(0);
+    if (i == 1) {
+      tp = Tred;
+      dtp = S(1);
+    } else if (i > 1) {
+      dtp = S(2) * t1 + S(2) * Tred * dt1 - dt2;
+      tp = S(2) * Tred * t1 - t2;
+    }
+    S sk = S(0), sdP = S(0);
+    S p1 = S(0), p2 = S(0), dp1 = S(0), dp2 = S(0);  // P_{j-1}, P_{j-2}
+    for (int j = 0; j < NP; ++j) {
+      S pp = S(1), dpp = S(0);
+      if (j == 1) {
+        pp = Pred;
+        dpp = S(1);
+      } else if (j > 1) {
+        dpp = S(2) * p1 + S(2) * Pred * dp1 - dp2;
+        pp = S(2) * Pred * p1 - p2;
+      }
+      sk += coef[i * NP + j] * pp;
+      sdP += coef[i * NP + j] * dpp;
+      p2 = p1; p1 = pp; dp2 = dp1; dp1 = dpp;
+    }
+    lgk += tp * sk;
+    dlgk_T += dtp * sk;
+    dlgk_P += tp * sdP;
+    t2 = t1; t1 = tp; dt2 = dt1; dt1 = dtp;
+  }
+}
+
+// A side's product (and, in the array layout, its powers pw and slot
+// derivatives dp), and slot s's derivative: slot_products and dp[s] for
+// NS >= 0, slot_product and slot_deriv for the wide path (NS = WIDE_SLOTS)
+template <typename S, int NS>
+__device__ __forceinline__ S side_product(const S* __restrict__ conc,
+                                          long long B, long long b, int Sn,
+                                          const int* sp, const S* nu,
+                                          int has_frac, S* pw, S* dp) {
+  if constexpr (NS == WIDE_SLOTS)
+    return slot_product(conc, B, b, Sn, sp, nu, has_frac);
+  else
+    return slot_products<S, NS>(conc, B, b, Sn, sp, nu, has_frac, pw, dp);
+}
+
+template <typename S, int NS>
+__device__ __forceinline__ S slot_dp(const S* dp, const S* __restrict__ conc,
+                                     long long B, long long b, int Sn,
+                                     const int* sp, const S* nu, int has_frac,
+                                     int s) {
+  if constexpr (NS == WIDE_SLOTS)
+    return slot_deriv(conc, B, b, Sn, sp, nu, has_frac, s);
+  else
+    return dp[s];
+}
+
 // the six per-reaction roles after the slot roles of the role array
 template <typename S>
 struct ReactionRoles {
@@ -225,14 +355,19 @@ __device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
 // xi_q into its source stack, where the slot roles went too).  HAS_PM =
 // false drops the pressure-modification machinery; SF > 0 (SP > 0) fixes
 // the reactant (product) slot count at compile time, keeping the slot
-// arrays in registers (K1, K4, K3 and K5 for Sf = Sp = 2).
+// arrays in registers (K1, K4, K3 and K5 for Sf = Sp = 2); SF = SP =
+// WIDE_SLOTS takes the counts of d and keeps no per-thread array (the
+// wide path: a side of more than ARRAY_SLOTS slots or a Chebyshev order
+// above ARRAY_CHEB), with the array path's results bit for bit.
 template <typename S, bool HAS_PM, int SF = 0, int SP = 0>
 __device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const PartsTables<S>& t, const PartsDims<S>& d, const S* __restrict__ st,
     long long B, long long b, int r, S* __restrict__ slots, long long oB,
     long long ob) {
+  constexpr bool WIDE = SF == WIDE_SLOTS;
+  static_assert(WIDE == (SP == WIDE_SLOTS), "both sides wide or neither");
   const int N = d.N, R = d.R, conp = d.conp;
-  const int Sf = SF ? SF : d.Sf, Sp = SP ? SP : d.Sp;
+  const int Sf = SF > 0 ? SF : d.Sf, Sp = SP > 0 ? SP : d.Sp;
   const int fl = t.flags[r];
   const S tiny = Num<S>::tiny();
 
@@ -285,30 +420,36 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const S* pl = t.cheb_plim + 2 * cp_;
     const S Tred = (S(2) / T - tl[0]) / tl[1];
     const S Pred = (S(2) * klog10(kmax(pres, tiny)) - pl[0]) / pl[1];
-    S Tp[MAX_CHEB], dTp[MAX_CHEB], Pp[MAX_CHEB], dPp[MAX_CHEB];
-    Tp[0] = S(1); dTp[0] = S(0); Pp[0] = S(1); dPp[0] = S(0);
-    if (NT > 1) { Tp[1] = Tred; dTp[1] = S(1); }
-    if (NP > 1) { Pp[1] = Pred; dPp[1] = S(1); }
-    for (int i = 2; i < NT; ++i) {
-      dTp[i] = S(2) * Tp[i - 1] + S(2) * Tred * dTp[i - 1] - dTp[i - 2];
-      Tp[i] = S(2) * Tred * Tp[i - 1] - Tp[i - 2];
-    }
-    for (int i = 2; i < NP; ++i) {
-      dPp[i] = S(2) * Pp[i - 1] + S(2) * Pred * dPp[i - 1] - dPp[i - 2];
-      Pp[i] = S(2) * Pred * Pp[i - 1] - Pp[i - 2];
+    constexpr int NC = WIDE ? 1 : ARRAY_CHEB;
+    S Tp[NC], dTp[NC], Pp[NC], dPp[NC];
+    if constexpr (!WIDE) {
+      Tp[0] = S(1); dTp[0] = S(0); Pp[0] = S(1); dPp[0] = S(0);
+      if (NT > 1) { Tp[1] = Tred; dTp[1] = S(1); }
+      if (NP > 1) { Pp[1] = Pred; dPp[1] = S(1); }
+      for (int i = 2; i < NT; ++i) {
+        dTp[i] = S(2) * Tp[i - 1] + S(2) * Tred * dTp[i - 1] - dTp[i - 2];
+        Tp[i] = S(2) * Tred * Tp[i - 1] - Tp[i - 2];
+      }
+      for (int i = 2; i < NP; ++i) {
+        dPp[i] = S(2) * Pp[i - 1] + S(2) * Pred * dPp[i - 1] - dPp[i - 2];
+        Pp[i] = S(2) * Pred * Pp[i - 1] - Pp[i - 2];
+      }
     }
     const S* coef = t.cheb_coef + (size_t)cp_ * NT * NP;
     S lgk = S(0), dlgk_T = S(0), dlgk_P = S(0);
-    for (int i = 0; i < NT; ++i) {
-      S sk = S(0), sdP = S(0);
-      for (int j = 0; j < NP; ++j) {
-        sk += coef[i * NP + j] * Pp[j];
-        sdP += coef[i * NP + j] * dPp[j];
+    if constexpr (WIDE)
+      cheb_sums_streamed(coef, NT, NP, Tred, Pred, lgk, dlgk_T, dlgk_P);
+    else
+      for (int i = 0; i < NT; ++i) {
+        S sk = S(0), sdP = S(0);
+        for (int j = 0; j < NP; ++j) {
+          sk += coef[i * NP + j] * Pp[j];
+          sdP += coef[i * NP + j] * dPp[j];
+        }
+        lgk += Tp[i] * sk;
+        dlgk_T += dTp[i] * sk;
+        dlgk_P += Tp[i] * sdP;
       }
-      lgk += Tp[i] * sk;
-      dlgk_T += dTp[i] * sk;
-      dlgk_P += Tp[i] * sdP;
-    }
     const S dTred_dT = (-S(2) / (T * T)) / tl[1];
     const S dPred_dlnP = S(2) / (S(LN10) * pl[1]);
     kf = kexp(S(LN10) * lgk);
@@ -331,15 +472,17 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
   }
 
   // --- rates of progress and slot derivatives ---------------------------------
-  S pwf[MAX_SLOTS], pwp[MAX_SLOTS], dpf[MAX_SLOTS], dpr[MAX_SLOTS];
+  // (the wide path keeps no slot array: side_product and slot_dp below)
+  constexpr int NA = WIDE ? 1 : ARRAY_SLOTS;
+  S pwf[NA], pwp[NA], dpf[NA], dpr[NA];
   const int* rsp = t.reac_sp + (size_t)r * Sf;
   const int* psp = t.prod_sp + (size_t)r * Sp;
-  const S pf = slot_products<S, SF>(conc, B, b, Sf, rsp,
-                                    t.reac_nu + (size_t)r * Sf, d.has_frac,
-                                    pwf, dpf);
-  const S pr = slot_products<S, SP>(conc, B, b, Sp, psp,
-                                    t.prod_nu + (size_t)r * Sp, d.has_frac,
-                                    pwp, dpr);
+  const S pf = side_product<S, SF>(conc, B, b, Sf, rsp,
+                                   t.reac_nu + (size_t)r * Sf, d.has_frac,
+                                   pwf, dpf);
+  const S pr = side_product<S, SP>(conc, B, b, Sp, psp,
+                                   t.prod_nu + (size_t)r * Sp, d.has_frac,
+                                   pwp, dpr);
   const S Rf = kf * pf;
   const S Rr = kr * pr;
   const S ordf = t.ordf[r], ordr = t.ordr[r];
@@ -450,12 +593,16 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
   const S pmrho = pm * rho;
   S dlf = S(0), dlr = S(0);
   for (int s = 0; s < Sf; ++s) {
-    const S kd = kf * dpf[s];
+    const S kd = kf * slot_dp<S, SF>(dpf, conc, B, b, Sf, rsp,
+                                     t.reac_nu + (size_t)r * Sf, d.has_frac,
+                                     s);
     if (rsp[s] == N - 1) dlf = dlf + kd;
     slots[((size_t)s * R + r) * oB + ob] = pmrho * kd;
   }
   for (int s = 0; s < Sp; ++s) {
-    const S kd = kr * dpr[s];
+    const S kd = kr * slot_dp<S, SP>(dpr, conc, B, b, Sp, psp,
+                                     t.prod_nu + (size_t)r * Sp, d.has_frac,
+                                     s);
     if (psp[s] == N - 1) dlr = dlr + kd;
     slots[((size_t)(Sf + s) * R + r) * oB + ob] = pmrho * kd;
   }

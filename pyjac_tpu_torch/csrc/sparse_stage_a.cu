@@ -170,9 +170,7 @@ static int launch_kernel(const StageATables& t, const PartsDims<double>& d,
 template <int LAST>
 static int launch(STAGE_A_PARAMS) {
   if (n_tables != N_TABLES || n_dims != N_DIMS || n_plan != N_PLAN) return -1;
-  if (dims[0] < 2 || dims[2] > MAX_SLOTS || dims[3] > MAX_SLOTS ||
-      dims[5] > MAX_CHEB || dims[6] > MAX_CHEB || dims[11] < 0 || B < 1)
-    return -1;
+  if (dims[0] < 2 || dims[11] < 0 || B < 1) return -1;
   const TileLayout L = stage_a_layout(dims[0], dims[1], dims[10]);
   const long long TS = plan[0], shared = plan[1], grid = plan[2];
   if (plan[3] != L.rows || TS < 1 || TS > TILE_THREADS || grid < 1) return -1;
@@ -191,8 +189,11 @@ static int launch(STAGE_A_PARAMS) {
   launch_kernel<PM, SL, SM, LAST>(t, d, dims[10], dims[11], (int)TS, n_tiles, \
                                   (unsigned)grid, smem, y, P, B, src, col0,   \
                                   f, post, scratch, s)
-#define SA_SLOTS(PM, SM) \
-  (dims[2] == 2 && dims[3] == 2 ? SA_LAUNCH(PM, 2, SM) : SA_LAUNCH(PM, 0, SM))
+  const bool wide = wide_tables(d.Sf, d.Sp, d.NT, d.NP);
+#define SA_SLOTS(PM, SM)                                          \
+  (wide ? SA_LAUNCH(PM, WIDE_SLOTS, SM)                           \
+        : dims[2] == 2 && dims[3] == 2 ? SA_LAUNCH(PM, 2, SM)     \
+                                       : SA_LAUNCH(PM, 0, SM))
   if (dims[9])
     return shared ? SA_SLOTS(true, true) : SA_SLOTS(true, false);
   return shared ? SA_SLOTS(false, true) : SA_SLOTS(false, false);

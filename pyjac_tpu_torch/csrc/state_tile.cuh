@@ -70,8 +70,9 @@ struct SourceOut {
 // over species; (2) reaction_parts over reactions taken in rxn_order
 // (grouped by category, so the TS threads of a warp that share a reaction
 // take one path), SL = 2 fixing the 2 + 2 slot counts at compile time (0:
-// the counts of d); (3) the contractions over species, a spare thread
-// group taking the closure's sums meanwhile; (4) the closure: the sums
+// the counts of d; WIDE_SLOTS: the wide path of csrc/kinetics.cuh); (3)
+// the contractions over species, a spare thread group taking the
+// closure's sums meanwhile; (4) the closure: the sums
 // per state, then at once the temperature row's sums per state and each
 // species' rows, so no group runs it alone (K1, SRC: each species'
 // temperature-row terms and rows at once, then the sums of the terms in

@@ -200,10 +200,12 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
 
 def ignition_delay(packed, y0, param, t_end, threshold: float = 400.0,
                    conp: bool = True, n_points: int = 64,
-                   rtol: float = 1e-6, atol: float = 1e-10, device='cuda'):
+                   rtol: float = 1e-6, atol: float = 1e-10,
+                   jacobian: str = 'xla', device='cuda'):
     """Crude batched ignition-delay estimate: bisection on the time at
     which T rises ``threshold`` K above the initial temperature (the
-    JAX package's bisection, each probe one :func:`integrate` call).
+    JAX package's bisection, each probe one :func:`integrate` call, its
+    stage Jacobian by ``jacobian``: 'dd' runs K4 on the card).
     Returns a (B,) numpy array of times."""
     device = entry_device(device)
     y0 = as_f64(y0, device)
@@ -213,7 +215,7 @@ def ignition_delay(packed, y0, param, t_end, threshold: float = 400.0,
     for _ in range(int(math.log2(n_points)) + 4):
         mid = 0.5 * (lo + hi)
         res = integrate(packed, y0, param, mid, conp=conp, rtol=rtol,
-                        atol=atol, device=device)
+                        atol=atol, jacobian=jacobian, device=device)
         ignited = res.y[:, 0].cpu().numpy() > T0 + threshold
         hi = np.where(ignited, mid, hi)
         lo = np.where(ignited, lo, mid)

@@ -8,9 +8,14 @@ exports them with ``torch.export`` as ``.pt2`` programs, each with a
 *symbolic batch dimension* (``torch.export.Dim('b', min=1)``), so one
 artifact serves any state count, plus a JSON manifest.
 
-The plain float64 kernels (``dydt``, ``jacobian``, ``jacobian_and_dydt``,
-``rates``) are traced through their PyTorch functions.  The kernel
-entries trace the modules' batch-minor ``call_tr``:
+The plain kernels (``dydt``, ``jacobian``, ``jacobian_and_dydt``,
+``rates``) are traced through their PyTorch functions, with float64
+example inputs or, under ``dtype='f32'``, float32 ones: as the JAX
+package's f32 artifacts, such a program takes float32 ``(param, y)``,
+computes in float64 (it casts its inputs up, as the JAX package's f64
+tables promote them) and returns float64.  The kernel entries trace the
+modules' batch-minor ``call_tr``, whose float64 interface does not change
+with ``dtype`` (the JAX package's dd entries keep their float32-pair one):
 
 * ``jacobian_dd_sparse`` — ``SparseJacobian(fuse_gather=True)``, on the
   card the stage-A and stage-B kernels K1 + K2;
@@ -37,6 +42,9 @@ from .ops.common import F64, entry_device
 
 _KERNELS = ('dydt', 'jacobian', 'jacobian_and_dydt', 'rates')
 
+# the plain kernels' input type of each manifest dtype
+_DTYPES = {'f64': F64, 'f32': torch.float32}
+
 # the batch-minor layouts of the kernel entries (the manifest's keys)
 _LAYOUTS = {
     'jacobian_dd_sparse': (
@@ -51,14 +59,15 @@ _LAYOUTS = {
 
 
 class _Kernel(torch.nn.Module):
-    """``fn(param, y)`` as a module, for ``torch.export``."""
+    """``fn(param, y)`` as a module, for ``torch.export``, on float64
+    inputs (a float32 export's are cast up first)."""
 
     def __init__(self, fn):
         super().__init__()
         self.fn = fn
 
     def forward(self, param, y):
-        return self.fn(param, y)
+        return self.fn(param.to(F64), y.to(F64))
 
 
 class _Entry(torch.nn.Module):
@@ -108,29 +117,40 @@ def _kernel_fn(packed, name: str, conp: bool):
     raise ValueError('unknown kernel ' + name)
 
 
-def _example(N: int, B: int, conp: bool, device):
-    """(param (B,), y (B, N)): a plausible state for tracing (1000 K,
-    equal mass fractions, 1 atm, or under CONV 1 kg/m^3)."""
-    y = torch.full((B, N), 1.0 / N, dtype=F64, device=device)
+def _example(N: int, B: int, conp: bool, device, dtype=F64):
+    """(param (B,), y (B, N)) in ``dtype``: a plausible state for
+    tracing (1000 K, equal mass fractions, 1 atm, or under CONV
+    1 kg/m^3)."""
+    y = torch.full((B, N), 1.0 / N, dtype=dtype, device=device)
     y[:, 0] = 1000.0
-    param = torch.full((B,), 101325.0 if conp else 1.0, dtype=F64,
+    param = torch.full((B,), 101325.0 if conp else 1.0, dtype=dtype,
                        device=device)
     return param, y
 
 
-def export_kernel(packed, name: str, conp: bool = True, device='cuda'):
+def _dtype(dtype: str):
+    if dtype not in _DTYPES:
+        raise ValueError("dtype must be 'f64' or 'f32', got %r" % (dtype,))
+    return _DTYPES[dtype]
+
+
+def export_kernel(packed, name: str, conp: bool = True, device='cuda',
+                  dtype: str = 'f64'):
     """The ``torch.export.ExportedProgram`` of one kernel for ``device``
     (the CUDA card unless the caller asks for another), its batch a
-    symbolic ``Dim('b', min=1)``: a plain kernel of ``(param, y)`` or a
-    kernel entry of ``(y_t, P_t)``.  opt_einsum's path search guards on
-    the batch size, so the trace contracts the three-operand einsums
-    (Chebyshev rates) in their written order."""
+    symbolic ``Dim('b', min=1)``: a plain kernel of ``(param, y)``
+    (float64 inputs, or float32 under ``dtype='f32'``; float64 outputs)
+    or a kernel entry of float64 ``(y_t, P_t)``.  opt_einsum's path
+    search guards on the batch size, so the trace contracts the
+    three-operand einsums (Chebyshev rates) in their written order."""
     from .ops.jacobian_dense import DenseJacobian
     from .ops.jacobian_sparse import SparseJacobian
 
     device = entry_device(device)
     b = torch.export.Dim('b', min=1)
-    param, y = _example(packed.n_species, 5, conp, device)
+    entry = name in _LAYOUTS
+    param, y = _example(packed.n_species, 5, conp, device,
+                        F64 if entry else _dtype(dtype))
     if name == 'jacobian_dd':
         mod = _Entry(DenseJacobian(packed, conp=conp, device=device))
     elif name == 'jacobian_dd_sparse':
@@ -153,16 +173,15 @@ def generate_library(packed, out_dir: str,
                      dtype: str = 'f64') -> str:
     """Export the given kernels (:func:`export_kernel`) into ``out_dir``
     for ``device`` (the CUDA card unless the caller asks for another);
-    returns the manifest's path.  The port computes in float64 only:
-    ``dtype`` must be 'f64'."""
-    if dtype != 'f64':
-        raise ValueError("the port's kernels compute in float64: dtype must "
-                         "be 'f64', got %r" % (dtype,))
+    returns the manifest's path.  ``dtype`` ('f64' or 'f32', recorded in
+    the manifest) is the plain kernels' input type; every artifact
+    computes in and returns float64."""
+    _dtype(dtype)
     device = entry_device(device)
     os.makedirs(out_dir, exist_ok=True)
     entries, layouts = {}, {}
     for name in kernels:
-        prog = export_kernel(packed, name, conp, device)
+        prog = export_kernel(packed, name, conp, device, dtype)
         fname = '{}_{}.pt2'.format(name, 'conp' if conp else 'conv')
         torch.export.save(prog, os.path.join(out_dir, fname))
         entries[name] = fname
@@ -192,8 +211,9 @@ def generate_library(packed, out_dir: str,
 def load_library(out_dir: str) -> Dict[str, object]:
     """Load exported kernels; returns {'manifest': ..., '<kernel>': fn}.
 
-    The plain kernels take ``(param, y)`` like the live functions, the
-    kernel entries ``(y_t, P_t)`` like ``call_tr``; each runs the
+    The plain kernels take ``(param, y)`` like the live functions (in
+    the manifest's ``dtype``), the kernel entries ``(y_t, P_t)`` like
+    ``call_tr``; each returns float64 and runs the
     exported program on the device it was exported for (tensors must
     lie there).  No mechanism file, parser or packing is involved."""
     from .ops import kernels  # noqa: F401  (registers the operators)

@@ -52,9 +52,8 @@ from torch import nn
 from ..core.pack import permute_reactions, presmod_first_order
 from .common import F64, as_f64, entry_device
 from .jacobian import heat_terms, reaction_parts_at, state_quantities
-from .jacobian_sparse import (MAX_SLOTS, column_csr, column_roles,
-                              finish_rows, post_col_reference, post_rows,
-                              role_tables)
+from .jacobian_sparse import (column_csr, column_roles, finish_rows,
+                              post_col_reference, post_rows, role_tables)
 from .thermo import eval_dsmh_dT, eval_smh
 
 # roles after the Sf + Sp slot rows of the ``roles`` array
@@ -63,9 +62,6 @@ ROLE_NAMES = ('q', 'dq_dT', 'c_u', 'c_1', 'psi_q', 'xi_q')
 # rows of the pre-stage's stacked ``rows`` array read by K5: five (1, B)
 # rows, then conc, smh, dsmh (N, B) each
 ST_ROWS = ('T', 'logT', 'P', 'rho', 'mw_avg')
-
-# largest Chebyshev temperature / pressure order the K5 kernel unrolls
-MAX_CHEB = 16
 
 # per-reaction category bits of the K5 kernel's ``flags`` table
 FLAG_REV, FLAG_THD, FLAG_FALL, FLAG_CHEM, FLAG_TROE, FLAG_SRI, FLAG_T2 = (
@@ -204,18 +200,6 @@ def parts_tables(packed) -> dict:
         'nu_ptr': i32(nu_ptr), 'nu_col': i32(nu_col),
         'thd_ptr': i32(thd_ptr), 'thd_col': i32(thd_col),
     }
-
-
-def parts_unsupported(packed) -> list:
-    """Table sizes the K5 kernel does not unroll (its plain version
-    takes any)."""
-    flags = [('more than %d reactant/product slots' % MAX_SLOTS,
-              max(packed.reac_sp.shape[1], packed.prod_sp.shape[1]) >
-              MAX_SLOTS),
-             ('Chebyshev order above %d' % MAX_CHEB,
-              packed.has_cheb and max(packed.cheb_coef.shape[1:]) >
-              MAX_CHEB)]
-    return [name for name, bad in flags if bad]
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +360,6 @@ class BigJacobian(nn.Module):
         self.Sf, self.Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
         self.n_roles = self.Sf + self.Sp + len(ROLE_NAMES)
         self.n_post = post_rows(N, self.J)['fT'][1]
-        self.unsupported = parts_unsupported(packed)
         self._launch_cache = {}
         buf = lambda name, a: self.register_buffer(name, torch.as_tensor(a))
         buf('inv_mw', np.asarray(packed.inv_mw, np.float64))
@@ -403,14 +386,6 @@ class BigJacobian(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.inv_mw.device
-
-    def _apply(self, fn, *args, **kwargs):
-        out = super()._apply(fn, *args, **kwargs)
-        if self.device.type == 'cuda' and self.unsupported:
-            raise NotImplementedError(
-                'the CUDA K5 kernel does not unroll %s'
-                % ', '.join(self.unsupported))
-        return out
 
     def tab(self, prefix: str) -> dict:
         """The registered tables whose names start with ``prefix``,

@@ -25,8 +25,7 @@ from torch import nn
 
 from .common import F64, as_f64, cached, entry_device
 from .jacobian_big import (cols_dense_reference, dense_col_tables, finish,
-                           parts_reference, parts_tables, parts_unsupported,
-                           state_thermo)
+                           parts_reference, parts_tables, state_thermo)
 from .jacobian_sparse import (FINISH_INT_TABLES, column_csr, column_roles,
                               finish_tables, role_tables, supports)
 
@@ -135,8 +134,7 @@ class DenseJacobian(nn.Module):
     The tables are registered buffers, so ``.to(device)`` moves them.
     On CUDA tensors every call launches K4 (or raises); on CPU tensors it
     runs :func:`dense_reference`.  A mechanism :func:`supports` refuses
-    raises ``NotImplementedError`` (on the card, also a table size K4
-    does not unroll).
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, packed, conp: bool = True, device='cuda'):
@@ -150,7 +148,6 @@ class DenseJacobian(nn.Module):
         self.conp = bool(conp)
         self.N, self.R = packed.n_species, packed.n_reactions
         self.J = self.N - 1
-        self.unsupported = parts_unsupported(packed)
         buf = lambda name, a: self.register_buffer(name, torch.as_tensor(a))
         buf('inv_mw', np.asarray(packed.inv_mw, np.float64))
         for name, arr in parts_tables(packed).items():
@@ -162,13 +159,6 @@ class DenseJacobian(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.inv_mw.device
-
-    def _apply(self, fn, *args, **kwargs):
-        out = super()._apply(fn, *args, **kwargs)
-        if self.device.type == 'cuda' and self.unsupported:
-            raise NotImplementedError('the CUDA K4 kernel does not unroll %s'
-                                      % ', '.join(self.unsupported))
-        return out
 
     def call_tr(self, y_t, P_t):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B)

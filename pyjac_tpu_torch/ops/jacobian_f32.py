@@ -26,7 +26,7 @@ from torch import nn
 
 from ..core.constants import RU
 from .common import LOG10, cached, entry_device
-from .jacobian_big import parts_tables, parts_unsupported
+from .jacobian_big import parts_tables
 # K3 covers what K4 covers (``pallas_jacobian.supports``: sign-flipping
 # PLOG tables are refused; its 50 MB VMEM clause is a TPU limit)
 from .jacobian_dense import fused_tables, supports
@@ -144,6 +144,15 @@ def _scatter(rows, x, R):
     return out.index_copy(0, rows, x)
 
 
+def mean_weight(C, Yr):
+    """The full mass fractions (N, B), the last species' 1 - sum(Y), and
+    1 / W_bar (1, B), as JAX's kernel sums them (a reduction and a
+    product with the inverse weights)."""
+    y_N = 1.0 - Yr.sum(0, keepdim=True)
+    Y_full = torch.cat([Yr, y_N], 0)
+    return Y_full, C['inv_mw'].T @ Y_full
+
+
 def _compute(C, meta, y, P_in, conp):
     """``pallas_jacobian._compute`` in float32 on (N, B) states ``y`` and
     the (1, B) pressure (CONP) or density (CONV) row ``P_in``."""
@@ -152,9 +161,7 @@ def _compute(C, meta, y, P_in, conp):
     Yr = y[1:]
     logT = torch.log(T)
     invT = 1.0 / T
-    y_N = 1.0 - Yr.sum(0, keepdim=True)
-    Y_full = torch.cat([Yr, y_N], 0)
-    inv_wbar = C['inv_mw'].T @ Y_full
+    Y_full, inv_wbar = mean_weight(C, Yr)
     mw_avg = 1.0 / inv_wbar
     if conp:
         P = P_in
@@ -583,8 +590,7 @@ class F32Jacobian(nn.Module):
     The tables are registered buffers, so ``.to(device)`` moves them.
     On CUDA tensors every call launches K3 (or raises); on CPU tensors it
     runs :func:`f32_reference`.  A mechanism :func:`supports` refuses
-    raises ``NotImplementedError`` (on the card, also a table size K3
-    does not unroll).
+    raises ``NotImplementedError``.
     """
 
     def __init__(self, packed, conp: bool = True, device='cuda'):
@@ -598,7 +604,6 @@ class F32Jacobian(nn.Module):
         self.conp = bool(conp)
         self.N, self.R = packed.n_species, packed.n_reactions
         self.J = self.N - 1
-        self.unsupported = parts_unsupported(packed)
         self.register_buffer('inv_mw', torch.as_tensor(
             np.asarray(packed.inv_mw, np.float32)))
         for name, arr in f32_tables(packed).items():
@@ -608,13 +613,6 @@ class F32Jacobian(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.inv_mw.device
-
-    def _apply(self, fn, *args, **kwargs):
-        out = super()._apply(fn, *args, **kwargs)
-        if self.device.type == 'cuda' and self.unsupported:
-            raise NotImplementedError('the CUDA K3 kernel does not unroll %s'
-                                      % ', '.join(self.unsupported))
-        return out
 
     def call_tr(self, y_t, P_t):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B)

@@ -45,10 +45,6 @@ from torch import nn
 from .common import F64, as_f64, entry_device, to_device
 from .jacobian import heat_terms, reaction_parts
 
-# largest reactant / product slot count the CUDA kernels K1, K4, K5
-# unroll
-MAX_SLOTS = 8
-
 # the int32 tables of finish_tables (its others are float64)
 FINISH_INT_TABLES = ('nut_ptr', 'nut_row')
 # ... and of kernel_tables after K5's
@@ -208,10 +204,9 @@ def supports(packed) -> bool:
     Mirrors ``pallas_jacobian.supports``, which ``pallas_dd.supports``
     (the TPU sparse and dense pipelines') calls: sign-flipping PLOG tables
     (negative A inside a PLOG ladder) are refused.  Its 50 MB VMEM
-    constant clause is a TPU limit and is not ported.  On the card the
-    kernels also refuse table sizes they do not unroll
-    (``jacobian_big.parts_unsupported``: moving a module to CUDA raises);
-    the plain versions take any.
+    constant clause is a TPU limit and is not ported.  The kernels, as
+    their plain versions, take any slot count and Chebyshev order (the
+    wide path of ``csrc/kinetics.cuh``).
     """
     return not (packed.has_plog and
                 bool((np.asarray(packed.plog_sign) < 0).any()))
@@ -409,10 +404,7 @@ class SparseJacobian(nn.Module):
     moves them.  On CUDA tensors every call launches the two kernels of
     :mod:`.kernels` (or raises); on CPU tensors it runs their plain
     versions.  A mechanism :func:`supports` refuses raises
-    ``NotImplementedError``, as ``PallasDDJacobianSparse`` does; so does
-    moving the module to CUDA for table sizes the stage-A kernel does not
-    unroll: those of the reaction body it shares with K5 and K4
-    (``jacobian_big.parts_unsupported``).
+    ``NotImplementedError``, as ``PallasDDJacobianSparse`` does.
     """
 
     def __init__(self, packed, conp: bool = True, fuse_gather: bool = True,
@@ -431,8 +423,6 @@ class SparseJacobian(nn.Module):
         self.Sf, self.Sp, self.S_eff = ct['Sf'], ct['Sp'], ct['S_eff']
         self.n_src, self.Rmax = ct['n_src'], ct['Rmax']
         self.n_post = post_rows(self.N, self.J)['fT'][1]
-        from .jacobian_big import parts_unsupported
-        self.unsupported = parts_unsupported(packed)
         self.register_buffer('gidx', torch.as_tensor(ct['gidx']))
         self.register_buffer('nuc', torch.as_tensor(ct['nuc']))
         self.register_buffer('inv_mw', torch.as_tensor(
@@ -452,19 +442,6 @@ class SparseJacobian(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.inv_mw.device
-
-    def _apply(self, fn, *args, **kwargs):
-        out = super()._apply(fn, *args, **kwargs)
-        self.check_kernel_coverage(self.device)
-        return out
-
-    def check_kernel_coverage(self, device) -> None:
-        """Raise ``NotImplementedError`` if ``device`` is a CUDA device
-        and the mechanism's tables are larger than the kernels unroll."""
-        if torch.device(device).type == 'cuda' and self.unsupported:
-            raise NotImplementedError(
-                'the CUDA stage-A kernel does not unroll %s; run this '
-                'mechanism on the CPU' % ', '.join(self.unsupported))
 
     # --- the two stages ------------------------------------------------------
     def stage_a(self, y_t, P_t) -> dict:

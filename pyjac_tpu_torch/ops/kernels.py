@@ -321,7 +321,6 @@ def stage_a(mod, y_t, P_t, plan=None) -> dict:
     ``post``.  ``plan``: a :func:`tile_plan` in place of the planner's
     own choice."""
     _on_card('y_t', y_t)
-    mod.check_kernel_coverage(y_t.device)
     out = torch.ops.pyjac_tpu_torch.stage_a(*stage_a_inputs(mod), y_t, P_t,
                                             plan_ints(plan))
     return dict(zip(('src', 'col0', 'f', 'post'), out))

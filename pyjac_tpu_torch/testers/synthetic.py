@@ -478,3 +478,76 @@ def packed_from_text(text: str):
     finally:
         os.unlink(path)
     return mech, pack(mech)
+
+
+def wide_mechanism(seed: int = 11) -> str:
+    """Chemkin text of a small mechanism wider than the CUDA kernels'
+    slot and Chebyshev arrays (``csrc/kinetics.cuh`` ARRAY_SLOTS = 8,
+    ARRAY_CHEB = 16): 21 species; two reversible reactions of 10
+    distinct reactant and 10 distinct product species, with fractional
+    nu on the 2^-8 grid; an 18 x 5 (T x P) Chebyshev fit; PLOG, Troe,
+    Lindemann and third-body reactions and a few elementary ones.
+
+    Species SP10..SP19 take the heat capacities of SP0..SP9 with no
+    enthalpy and entropy constants, and every reaction pairs each
+    species with its copy across its two sides, so each equilibrium
+    constant is of order 1 (a few e-folds) and both directions of every
+    reaction run at rates of one order on ``random_states`` draws, while
+    each still releases heat: a fault in the kernels' wide path shows in
+    J and dy/dt."""
+    names = ['SP{}'.format(k) for k in range(20)] + ['N2']
+    elems = ['H', 'O', 'N', 'C']
+    out = io.StringIO()
+    out.write('ELEMENTS\n' + ' '.join(elems) + '\nEND\n')
+    out.write('SPECIES\n' + ' '.join(names) + '\nEND\n')
+    out.write('THERMO ALL\n   300.000  1000.000  5000.000\n')
+    for k, nm in enumerate(names):
+        comp = [('N', 2)] if nm == 'N2' else \
+            [(elems[k % 4], 1 + k % 3), (elems[(k + 1) % 4], 1)]
+        rng = np.random.default_rng([seed, k % 10 if k < 20 else 99])
+        out.write(_species_thermo(nm, comp, rng,
+                                  smh_spread=0.0 if 10 <= k < 20 else 0.2)
+                  + '\n')
+    out.write('END\n')
+
+    lines: List[str] = []
+
+    def w(eq, A, b, E, extra=()):
+        lines.append('{:<40s}{:>10.3E}{:>9.3f}{:>12.2f}'.format(eq, A, b, E))
+        lines.extend(extra)
+
+    def side(ks, nus):
+        return '+'.join('{}SP{}'.format('' if nu == 1 else nu, k)
+                        for k, nu in zip(ks, nus))
+
+    # SP k and SP k + 10 (mod 20) share heat capacities: each pair's smh
+    # nearly cancels
+    nu1 = [1, 0.5, 0.25, 0.25, 0.5, 0.25, 0.25, 0.5, 0.25, 0.25]
+    w(side(range(10), nu1) + '<=>' + side(range(10, 20), nu1),
+      1.0e26, 0.0, 2000.0)
+    w(side(range(1, 11), [0.5] * 10) + '<=>' +
+      side(list(range(11, 20)) + [0], [0.5] * 10), 1.0e31, 0.0, 1000.0)
+    rng = np.random.default_rng(seed)
+    cheb = rng.uniform(-0.2, 0.2, size=(18, 5)) / \
+        (1.0 + np.arange(18)[:, None] + np.arange(5)[None, :])
+    cheb[0, 0] = 12.5
+    w('SP3+SP14<=>SP13+SP4', 1.0, 0.0, 0.0,
+      ['PCHEB / 0.01 100.0 / TCHEB / 500.0 3000.0 /',
+       'CHEB / 18 5 {} /'.format(' '.join('{:.6E}'.format(v)
+                                          for v in cheb.ravel()))])
+    w('SP7+SP18<=>SP17+SP8', 3.0e11, 0.2, 4000.0,
+      ['PLOG / 0.1 3.000E+10 0.200 4000.0 /',
+       'PLOG / 1.0 3.000E+11 0.200 3600.0 /',
+       'PLOG / 10.0 1.500E+12 0.200 3200.0 /'])
+    w('SP0+SP11(+M)<=>SP10+SP1(+M)', 2.0e12, 0.0, 1000.0,
+      ['LOW / 2.000E+15 -1.000 500.0 /', 'TROE / 0.62 98.0 1200.0 /'])
+    w('SP5+SP16(+M)<=>SP15+SP6(+M)', 1.0e12, 0.5, 2000.0,
+      ['LOW / 1.000E+15 -0.500 1000.0 /', 'SP2/2.0/ SP3/6.0/'])
+    w('SP9+SP12+M<=>SP19+SP2+M', 1.0e15, 0.0, 0.0, ['SP5/2.5/ SP6/0.5/'])
+    for _ in range(5):
+        k, m = rng.choice(10, size=2, replace=False)
+        w('SP{}+SP{}<=>SP{}+SP{}'.format(k, m + 10, k + 10, m),
+          10.0 ** rng.uniform(12, 13.5), rng.uniform(-1.0, 1.5),
+          rng.uniform(0.0, 2e4))
+    out.write('REACTIONS\n' + '\n'.join(lines) + '\nEND\n')
+    return out.getvalue()

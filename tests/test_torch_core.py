@@ -202,6 +202,9 @@ PORT_MODULES = [
     'pyjac_tpu_torch.core.mech',
     'pyjac_tpu_torch.core.pack',
     'pyjac_tpu_torch.bench',
+    'pyjac_tpu_torch.examples',
+    'pyjac_tpu_torch.examples.ignition_delay',
+    'pyjac_tpu_torch.examples.multichip_batch',
     'pyjac_tpu_torch.integrate',
     'pyjac_tpu_torch.libgen',
     'pyjac_tpu_torch.ops.common',

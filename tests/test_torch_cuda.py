@@ -108,16 +108,24 @@ def test_all_features_on_card_matches_cpu(card, tmp_path):
 
 
 def test_slot_limit_refuses_card(card):
-    """More reactant slots than the kernels unroll (8): moving the module
-    to the card raises."""
+    """More reactant slots than the kernels' slot arrays (9, past
+    ARRAY_SLOTS = 8): the module moves to the card, and K1 + K2 run the
+    wide path, agreeing with the unpadded mechanism's plain version."""
     _, p = flagship()
     pad = ((0, 0), (0, 9 - p.reac_sp.shape[1]))
     wide = dataclasses.replace(
         p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
         reac_nu=np.pad(np.asarray(p.reac_nu), pad))
-    sj = SparseJacobian(wide, device='cpu')
-    with pytest.raises(NotImplementedError, match='slots'):
-        sj.to(card)
+    g = np.load(DATA / 'golden_flagship_refc.npz')
+    J0, f0 = SparseJacobian(p, device='cpu')(g['y'], g['P'])
+    kernels.reset_launches()
+    J, f = SparseJacobian(wide, device='cpu').to(card)(g['y'], g['P'])
+    torch.cuda.synchronize(card)
+    assert (kernels.launches['stage_a'], kernels.launches['stage_b']) == \
+        (1, 1)
+    assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
+    f, f0 = f.cpu().numpy(), f0.numpy()
+    assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
 
 
 def test_launchers_check_inputs(card):

@@ -40,6 +40,10 @@ torch.set_num_threads(1)
 REPO = __import__('pathlib').Path(__file__).resolve().parent.parent
 TEXT = plausible_mechanism(12, 30, seed=3)
 PLAIN = ('dydt', 'jacobian', 'jacobian_and_dydt', 'rates')
+# JAX's f32 artifacts against the f64 computation on the same float32
+# inputs, of scale: its float32 steps before its float64 tables (measured
+# up to 1.5e-7 on this mechanism's states)
+F32_STEPS = 1e-6
 
 
 @pytest.fixture(scope='module')
@@ -267,11 +271,87 @@ assert not bad, bad
 
 
 def test_generate_library_refuses_what_it_cannot_export(mech, tmp_path):
-    """float64 only; and the default device is the card, absent here."""
-    with pytest.raises(ValueError):
-        libgen.generate_library(mech[0], str(tmp_path), ('dydt',),
-                                device='cpu', dtype='f32')
+    """The default device is the card, absent here; an unknown kernel
+    raises."""
     with pytest.raises(RuntimeError, match='CUDA'):
         libgen.generate_library(mech[0], str(tmp_path), ('dydt',))
     with pytest.raises(ValueError):
         libgen.export_kernel(mech[0], 'nope', True, 'cpu')
+
+
+@pytest.fixture(scope='module')
+def libs_f32(mech, tmp_path_factory):
+    """{conp: (the port's loaded f32 library, JAX's)} of the plain
+    kernels, exported with ``dtype='f32'``."""
+    p, jp, *_ = mech
+    out = {}
+    for conp in (True, False):
+        d = tmp_path_factory.mktemp('lib32')
+        libgen.generate_library(p, str(d / 'torch'), PLAIN, conp=conp,
+                                device='cpu', dtype='f32')
+        jgenerate_library(jp, str(d / 'jax'), PLAIN, conp=conp, dtype='f32')
+        out[conp] = (libgen.load_library(str(d / 'torch')),
+                     jload_library(str(d / 'jax')))
+    return out
+
+
+@pytest.mark.parametrize('conp', [True, False], ids=['conp', 'conv'])
+@pytest.mark.parametrize('kernel', PLAIN)
+def test_f32_artifacts_match_jax(libs, libs_f32, mech, kernel, conp):
+    """``dtype='f32'``: each plain artifact takes float32 ``(param, y)``
+    and returns float64, as JAX's f32 artifact does; at B = 5 and 17 it
+    equals the live f64 function on those inputs cast up (bit for bit)
+    and agrees with JAX's f64 artifact there at 1e-12 of scale (float64
+    roundoff).  JAX's f32 artifact runs the operations on its inputs
+    alone (T, ln T, 1/T, the mass-fraction sums) in float32 before they
+    meet its float64 tables, so it reads within F32_STEPS of scale."""
+    lib, jlib = libs_f32[conp]
+    jlib64 = libs[conp][1]
+    _, _, y, P, rho = mech
+    assert lib['manifest']['dtype'] == jlib['manifest']['dtype'] == 'f32'
+    param = np.asarray(P if conp else rho, np.float32)
+    y32 = np.asarray(y, np.float32)
+    live = libgen._kernel_fn(mech[0], kernel, conp)
+    tup = lambda x: tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    for B in (5, 17):
+        p32, yb = param[:B], y32[:B]
+        got = tup(lib[kernel](torch.tensor(p32), torch.tensor(yb)))
+        ref = tup(live(torch.tensor(p32).double(), torch.tensor(yb).double()))
+        j64 = tup(jlib64[kernel](p32.astype(np.float64),
+                                 yb.astype(np.float64)))
+        j32 = tup(jlib[kernel](p32, yb))
+        assert len(got) == len(ref) == len(j64) == len(j32)
+        for a, r, b64, b32 in zip(got, ref, j64, j32):
+            b64, b32 = np.asarray(b64), np.asarray(b32)
+            assert a.dtype == torch.float64 and b32.dtype == np.float64
+            assert a.shape == b32.shape and a.shape[0] == B
+            assert torch.equal(a, r)
+            _close(a.numpy(), b64)
+            scale = float(np.abs(b32).max()) + 1e-300
+            assert float(np.abs(a.numpy() - b32).max()) <= F32_STEPS * scale
+
+
+def test_f32_library_keeps_the_entries_interface(mech, tmp_path):
+    """The kernel entries' interface does not change with ``dtype``, as
+    in the JAX package: an f32 library's ``jacobian_dd_sparse`` and
+    ``jacobian_dd`` take float64 batch-minor states, equal to the f64
+    library's; an unknown dtype raises."""
+    p, _, y, P, _ = mech
+    outs = {}
+    for dtype in ('f32', 'f64'):
+        d = tmp_path / dtype
+        libgen.generate_library(p, str(d), ('jacobian_dd_sparse',
+                                            'jacobian_dd'), device='cpu',
+                                dtype=dtype)
+        lib = libgen.load_library(str(d))
+        assert lib['manifest']['dtype'] == dtype
+        y_t = torch.as_tensor(y[:5].T.copy())
+        P_t = torch.as_tensor(P[None, :5].copy())
+        outs[dtype] = [lib[k](y_t, P_t)
+                       for k in ('jacobian_dd_sparse', 'jacobian_dd')]
+    for a, b in zip(outs['f32'], outs['f64']):
+        assert all(torch.equal(x, z) and x.dtype == torch.float64
+                   for x, z in zip(a, b))
+    with pytest.raises(ValueError, match='dtype'):
+        libgen.generate_library(p, str(tmp_path / 'x'), ('dydt',),
+                                device='cpu', dtype='bf16')

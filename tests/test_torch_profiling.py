@@ -27,7 +27,8 @@ from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
 from pyjac_tpu_torch.testers.synthetic import (packed_from_text,
                                                plausible_mechanism,
                                                random_states,
-                                               synthetic_mechanism)
+                                               synthetic_mechanism,
+                                               wide_mechanism)
 
 torch.set_num_threads(1)
 
@@ -35,7 +36,8 @@ TEXTS = {'flagship': lambda: plausible_mechanism(53, 325, seed=42),
          'synth': lambda: synthetic_mechanism(9, 24, seed=7),
          'synth53': lambda: synthetic_mechanism(53, 325, seed=7),
          'usc': lambda: plausible_mechanism(111, 784, seed=5),
-         '654': lambda: plausible_mechanism(654, 2716, seed=5)}
+         '654': lambda: plausible_mechanism(654, 2716, seed=5),
+         'wide': wide_mechanism}
 
 _MECHS = {}
 
@@ -109,6 +111,15 @@ PERF_BOUNDS = [
     ('big_parts', 'big', '654', 1024, 0.071),
     ('big_cols_sparse', 'big', '654', 1024, 1.118),
     ('big_cols_dense', 'big_dense', '654', 512, 0.552),
+    # the wide mechanism's rows (phase 18, B = 4099)
+    ('stage_a', 'sparse', 'wide', 4099, 0.005),
+    ('stage_b', 'sparse', 'wide', 4099, 0.008),
+    ('stage_b_x', 'unfused', 'wide', 4099, 0.007),
+    ('fused_f32', 'f32', 'wide', 4099, 0.002),
+    ('dense_fused', 'dense', 'wide', 4099, 0.005),
+    ('big_parts', 'big', 'wide', 4099, 0.004),
+    ('big_cols_sparse', 'big', 'wide', 4099, 0.007),
+    ('big_cols_dense', 'big_dense', 'wide', 4099, 0.008),
 ]
 
 MODULES = {

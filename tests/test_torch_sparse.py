@@ -32,7 +32,7 @@ from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
 from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt, reaction_parts
-from pyjac_tpu_torch.ops.jacobian_big import parts_tables, parts_unsupported
+from pyjac_tpu_torch.ops.jacobian_big import parts_tables
 from pyjac_tpu_torch.ops.jacobian_dense import dense_reference
 from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian,
                                                  column_tables,
@@ -136,33 +136,33 @@ def test_tables_match_jax_expanded_pack(flagship):
 
 def test_kernel_coverage(flagship, synth, synth53):
     """The CUDA kernels cover the flagship and both all-features synths
-    (9/24 and 53/326: every category the JAX pipeline takes), so moving
-    them to CUDA raises nothing."""
+    (9/24 and 53/326: every category the JAX pipeline takes): the module
+    checks nothing when it moves (it keeps ``nn.Module._apply``), and its
+    kernel tables carry the categories."""
     p53 = synth53[2]
     assert p53.n_reactions == 326
     assert all(bool(x) for x in (
         p53.has_plog, p53.has_cheb, p53.has_sri, p53.has_chemact,
         p53.has_specific_pdep_sp, p53.has_frac_nu, p53.has_pres_mod))
     for p in (flagship[1], synth[1], p53):
-        assert parts_unsupported(p) == []
         sj = SparseJacobian(p, device='cpu')
-        assert sj.unsupported == []
-        sj.check_kernel_coverage('cuda')
-        sj.check_kernel_coverage('cpu')
+        assert type(sj)._apply is torch.nn.Module._apply
+        assert sj.kp_flags.shape == (p.n_reactions,)
 
 
 def test_slot_limit_still_raises_on_cuda(synth):
-    """More reactant slots than the kernels unroll (``MAX_SLOTS`` = 8):
-    the plain version takes it on the CPU, moving it to CUDA raises."""
+    """A table wider than the kernels' slot arrays (9 reactant slots,
+    past ARRAY_SLOTS = 8) no longer raises anywhere: the kernels run
+    their wide path on it (``csrc/kinetics.cuh``).  The padded slots
+    change nothing: the plain version's outputs equal the unpadded
+    mechanism's bit for bit."""
     p = synth[1]
     pad = ((0, 0), (0, 9 - p.reac_sp.shape[1]))
     wide = dataclasses.replace(
         p, reac_sp=np.pad(np.asarray(p.reac_sp), pad),
         reac_nu=np.pad(np.asarray(p.reac_nu), pad))
-    assert parts_unsupported(wide) == ['more than 8 reactant/product slots']
     sj = SparseJacobian(wide, device='cpu')
-    with pytest.raises(NotImplementedError, match='8 reactant/product slots'):
-        sj.check_kernel_coverage('cuda')
+    assert sj.Sf == 9 and type(sj)._apply is torch.nn.Module._apply
     y = torch.as_tensor(synth[2]['y'][:4])
     P = torch.as_tensor(synth[2]['P'][:4])
     J, f = sj(y, P)
