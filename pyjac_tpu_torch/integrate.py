@@ -17,6 +17,15 @@ step with ``torch.linalg.lu_factor_ex`` and every stage solves with
 ``torch.linalg.lu_solve``; the JAX package's ``gauss_solve`` (an
 elimination written because XLA:TPU could not compile an f64 LU) is not
 ported.
+
+While a profiler records, a call is one span ``pyjac.integrate`` holding
+one ``pyjac.integrate.iteration`` a loop iteration, and each iteration
+the spans ``pyjac.integrate.dydt`` (each dy/dt), ``.jacobian`` (the
+stage Jacobian and ``W``), ``.lu_factor``, ``.lu_solve`` (each stage
+solve) and ``.control`` (the error norm, the step controller and the
+masked updates); ``profiling.counters`` gains the state rows the loop
+computed (``integrate.state_slots``) and the steps its states took,
+accepted or rejected (``integrate.state_attempts``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 from .ops.common import as_f64, entry_device
 from .ops.dydt import dydt as dydt_dispatch
 from .ops.jacobian import eval_jacobian
+from .profiling import count, recording, span
 
 _D = 1.0 / (2.0 + math.sqrt(2.0))
 _E32 = 6.0 + math.sqrt(2.0)
@@ -94,13 +104,21 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
     if jacobian not in ('xla', 'dd'):
         raise ValueError('unknown jacobian %r' % (jacobian,))
     device = entry_device(device)
+    with span('pyjac.integrate'):
+        return _integrate(packed, y0, param, t_end, conp, rtol, atol,
+                          max_steps, first_step, jacobian, method, device)
+
+
+def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
+               first_step, jacobian, method, device):
     y0 = as_f64(y0, device)
     B, N = y0.shape
     param = torch.broadcast_to(as_f64(param, device), (B,))
     t_end = torch.broadcast_to(as_f64(t_end, device), (B,))
 
     def f(y):
-        return dydt_dispatch(packed, 0.0, param, y, conp=conp)
+        with span('pyjac.integrate.dydt'):
+            return dydt_dispatch(packed, 0.0, param, y, conp=conp)
 
     if jacobian == 'dd':
         from .ops.jacobian_dense import DenseJacobian
@@ -128,65 +146,74 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
     rejected = torch.zeros((B,), dtype=torch.int32, device=device)
     failed = torch.zeros((B,), dtype=torch.bool, device=device)
     iters = 0
-    while iters < 2 * max_steps:
-        active = (t < t_end) & ~failed & (steps + rejected < max_steps)
-        if not bool(active.any()):
-            break
-        hs = torch.minimum(h, t_end - t)
-        hs = torch.where(active, hs, 1.0)     # benign value on done rows
+    active = (t < t_end) & ~failed & (steps + rejected < max_steps)
+    going = bool(active.any())
+    while going and iters < 2 * max_steps:
+        with span('pyjac.integrate.iteration'):
+            count('integrate.state_slots', B)
+            hs = torch.minimum(h, t_end - t)
+            hs = torch.where(active, hs, 1.0)     # benign value on done rows
 
-        F0 = f(y)
-        W = eye - (hs * gamma)[:, None, None] * jac(y)
-        fac = lu_factor(W)
+            F0 = f(y)
+            with span('pyjac.integrate.jacobian'):
+                W = eye - (hs * gamma)[:, None, None] * jac(y)
+            with span('pyjac.integrate.lu_factor'):
+                fac = lu_factor(W)
 
-        def solve(rhs):
-            return lu_solve(fac, rhs)
+            def solve(rhs):
+                with span('pyjac.integrate.lu_solve'):
+                    return lu_solve(fac, rhs)
 
-        if method == 'ros23':
-            k1 = solve(F0)
-            F1 = f(y + 0.5 * hs[:, None] * k1)
-            k2 = solve(F1 - k1) + k1
-            y_new = y + hs[:, None] * k2
-            F2 = f(y_new)
-            k3 = solve(F2 - _E32 * (k2 - F1) - 2.0 * (k1 - F0))
-            err_vec = (hs / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
-        else:
-            # RODAS3 in the KPP stage form: (I - h g J) K_i =
-            # h g F(Y_i) + g sum_j C_ij K_j, with gamma = 1/2,
-            # A = [[0],[2,0],[2,0,1]], C = [[4],[1,-1],[1,-1,-8/3]],
-            # M = [2,0,1,1], E = [0,0,0,1]; stage 2 reuses F(y).
-            hc = hs[:, None]
-            K1 = solve(0.5 * hc * F0)
-            K2 = solve(0.5 * hc * F0 + 2.0 * K1)
-            Y3 = y + 2.0 * K1
-            K3 = solve(0.5 * (hc * f(Y3) + K1 - K2))
-            Y4 = Y3 + K3
-            K4 = solve(0.5 * (hc * f(Y4) + K1 - K2) - (4.0 / 3.0) * K3)
-            y_new = y + 2.0 * K1 + K3 + K4
-            err_vec = K4
+            if method == 'ros23':
+                k1 = solve(F0)
+                F1 = f(y + 0.5 * hs[:, None] * k1)
+                k2 = solve(F1 - k1) + k1
+                y_new = y + hs[:, None] * k2
+                F2 = f(y_new)
+                k3 = solve(F2 - _E32 * (k2 - F1) - 2.0 * (k1 - F0))
+                err_vec = (hs / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
+            else:
+                # RODAS3 in the KPP stage form: (I - h g J) K_i =
+                # h g F(Y_i) + g sum_j C_ij K_j, with gamma = 1/2,
+                # A = [[0],[2,0],[2,0,1]], C = [[4],[1,-1],[1,-1,-8/3]],
+                # M = [2,0,1,1], E = [0,0,0,1]; stage 2 reuses F(y).
+                hc = hs[:, None]
+                K1 = solve(0.5 * hc * F0)
+                K2 = solve(0.5 * hc * F0 + 2.0 * K1)
+                Y3 = y + 2.0 * K1
+                K3 = solve(0.5 * (hc * f(Y3) + K1 - K2))
+                Y4 = Y3 + K3
+                K4 = solve(0.5 * (hc * f(Y4) + K1 - K2) - (4.0 / 3.0) * K3)
+                y_new = y + 2.0 * K1 + K3 + K4
+                err_vec = K4
 
-        scale = atol + rtol * torch.maximum(y.abs(), y_new.abs())
-        err = torch.sqrt(torch.mean((err_vec / scale) ** 2, dim=-1))
-        err = torch.where(torch.isfinite(err) & fac[2], err, math.inf)
+            with span('pyjac.integrate.control'):
+                scale = atol + rtol * torch.maximum(y.abs(), y_new.abs())
+                err = torch.sqrt(torch.mean((err_vec / scale) ** 2, dim=-1))
+                err = torch.where(torch.isfinite(err) & fac[2], err,
+                                  math.inf)
 
-        accept = (err <= 1.0) & active
-        # PI-less step controller with the usual safety factors
-        factor = torch.clamp(0.9 * torch.pow(torch.clamp(err, min=1e-16),
-                                             -1.0 / 3.0), 0.2, 5.0)
-        h_next = torch.where(accept, hs * factor,
-                             hs * torch.clamp(factor, min=0.2) * 0.5)
-        h_next = torch.where(torch.isfinite(h_next) & (h_next > 0.0),
-                             h_next, hs * 0.5)
+                accept = (err <= 1.0) & active
+                # PI-less step controller with the usual safety factors
+                factor = torch.clamp(
+                    0.9 * torch.pow(torch.clamp(err, min=1e-16), -1.0 / 3.0),
+                    0.2, 5.0)
+                h_next = torch.where(accept, hs * factor,
+                                     hs * torch.clamp(factor, min=0.2) * 0.5)
+                h_next = torch.where(torch.isfinite(h_next) & (h_next > 0.0),
+                                     h_next, hs * 0.5)
 
-        y = torch.where(accept[:, None], y_new, y)
-        t = torch.where(accept, t + hs, t)
-        # a step that underflows the representable dt is a failure
-        too_small = active & (h_next < 1e-14 * t_end) & ~accept
-        h = torch.where(active, h_next, h)
-        steps = steps + accept.to(torch.int32)
-        rejected = rejected + (active & ~accept).to(torch.int32)
-        failed = failed | too_small
-        iters += 1
+                y = torch.where(accept[:, None], y_new, y)
+                t = torch.where(accept, t + hs, t)
+                # a step that underflows the representable dt is a failure
+                too_small = active & (h_next < 1e-14 * t_end) & ~accept
+                h = torch.where(active, h_next, h)
+                steps = steps + accept.to(torch.int32)
+                rejected = rejected + (active & ~accept).to(torch.int32)
+                failed = failed | too_small
+            iters += 1
+            active = (t < t_end) & ~failed & (steps + rejected < max_steps)
+            going = bool(active.any())
 
     success = (t >= t_end) & ~failed
     att = steps + rejected
@@ -195,6 +222,8 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
         torch.where(failed, STATUS_UNDERFLOW,
                     torch.where(att >= max_steps, STATUS_BUDGET,
                                 STATUS_STALLED))).to(torch.int32)
+    if recording():
+        count('integrate.state_attempts', int(att.sum()))
     return IntegrateResult(y, t, steps, rejected, success, status, iters)
 
 

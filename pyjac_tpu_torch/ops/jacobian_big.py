@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from ..core.pack import permute_reactions, presmod_first_order
+from ..profiling import span
 from .common import F64, as_f64, entry_device
 from .jacobian import heat_terms, reaction_parts_at, state_quantities
 from .jacobian_sparse import (column_csr, column_roles, finish_rows,
@@ -438,11 +439,13 @@ class BigJacobian(nn.Module):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B) float64
         tensors on the module's device (pressure under CONP, density
         under CONV).  Returns the Jacobian columns 1..J (J, N, B), the
-        temperature column ``col0`` (N, B) and dy/dt ``f`` (N, B)."""
-        st = state_thermo(self.packed, y_t, P_t, self.conp)
-        roles = self.parts(st)
-        fin = finish(self.packed, st, roles, self.conp)
-        return self.columns(roles, fin['post']), fin['col0'], fin['f']
+        temperature column ``col0`` (N, B) and dy/dt ``f`` (N, B).  One
+        span ``pyjac.jacobian``."""
+        with span('pyjac.jacobian'):
+            st = state_thermo(self.packed, y_t, P_t, self.conp)
+            roles = self.parts(st)
+            fin = finish(self.packed, st, roles, self.conp)
+            return self.columns(roles, fin['post']), fin['col0'], fin['f']
 
     def forward(self, y, P):
         """Batch-major: ``y`` (B, N), ``P`` scalar or (B,) -> ``J``

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..profiling import span
 from .common import F64, as_f64, cached, entry_device
 from .jacobian_big import (cols_dense_reference, dense_col_tables, finish,
                            parts_reference, parts_tables, state_thermo)
@@ -164,11 +165,12 @@ class DenseJacobian(nn.Module):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B)
         float64 tensors on the module's device (pressure under CONP,
         density under CONV).  Returns ``Jt`` (N, N, B), [column, row,
-        batch], and dy/dt ``f`` (N, B)."""
-        if y_t.device.type == 'cpu':
-            return dense_reference(self.packed, y_t, P_t, self.conp)
-        from . import kernels
-        return kernels.dense_fused(self, y_t, P_t)
+        batch], and dy/dt ``f`` (N, B).  One span ``pyjac.jacobian``."""
+        with span('pyjac.jacobian'):
+            if y_t.device.type == 'cpu':
+                return dense_reference(self.packed, y_t, P_t, self.conp)
+            from . import kernels
+            return kernels.dense_fused(self, y_t, P_t)
 
     def forward(self, y, P):
         """Batch-major: ``y`` (B, N), ``P`` scalar or (B,) -> ``J``

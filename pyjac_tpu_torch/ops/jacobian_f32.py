@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..core.constants import RU
+from ..profiling import span
 from .common import LOG10, cached, entry_device
 from .jacobian_big import parts_tables
 # K3 covers what K4 covers (``pallas_jacobian.supports``: sign-flipping
@@ -618,11 +619,13 @@ class F32Jacobian(nn.Module):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B)
         float32 tensors on the module's device (pressure under CONP,
         density under CONV).  Returns ``Jt`` (N, N, B), [column, row,
-        batch], and dy/dt ``f`` (N, B), float32."""
-        if y_t.device.type == 'cpu':
-            return f32_reference(self.packed, y_t, P_t, self.conp)
-        from . import kernels
-        return kernels.fused_f32(self, y_t, P_t)
+        batch], and dy/dt ``f`` (N, B), float32.  One span
+        ``pyjac.jacobian``."""
+        with span('pyjac.jacobian'):
+            if y_t.device.type == 'cpu':
+                return f32_reference(self.packed, y_t, P_t, self.conp)
+            from . import kernels
+            return kernels.fused_f32(self, y_t, P_t)
 
     def forward(self, y, P):
         """Batch-major: ``y`` (B, N), ``P`` scalar or (B,), cast to

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..profiling import span
 from .common import F64, as_f64, entry_device, to_device
 from .jacobian import heat_terms, reaction_parts
 
@@ -478,13 +479,15 @@ class SparseJacobian(nn.Module):
         """Batch-minor entry point: ``y_t`` (N, B), ``P_t`` (1, B) float64
         tensors on the module's device.  Returns the Jacobian columns
         1..J (J, N, B), the temperature column ``col0`` (N, B) and
-        dy/dt ``f`` (N, B)."""
-        a = self.stage_a(y_t, P_t)
-        if self.fuse_gather:
-            cols = self.stage_b(a['src'], a['post'])
-        else:
-            cols = self.stage_b_x(self.stage_gather(a['src']), a['post'])
-        return cols, a['col0'], a['f']
+        dy/dt ``f`` (N, B).  One span ``pyjac.jacobian``."""
+        with span('pyjac.jacobian'):
+            a = self.stage_a(y_t, P_t)
+            if self.fuse_gather:
+                cols = self.stage_b(a['src'], a['post'])
+            else:
+                cols = self.stage_b_x(self.stage_gather(a['src']),
+                                      a['post'])
+            return cols, a['col0'], a['f']
 
     def forward(self, y, P):
         """Batch-major: ``y`` (B, N), ``P`` scalar or (B,) -> ``J``

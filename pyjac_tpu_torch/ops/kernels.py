@@ -15,7 +15,12 @@ and contiguity, allocates its outputs and scratch with ``torch.empty``
 reaction ranges of a split), launches
 on the current CUDA stream, raises if the C entry returns a non-zero
 ``cudaError_t``, and adds one to ``launches[name]``.  There is no
-fallback: a launcher given anything but CUDA tensors raises.
+fallback: a launcher given anything but CUDA tensors raises.  While a
+profiler records, each launch shows two spans (``profiling.span``):
+``pyjac.kernels.prepare`` (the checks, table pointers and library, with
+the children ``pyjac.kernels.plan``, where the launcher plans the tiles,
+and ``pyjac.kernels.alloc``, where it allocates outputs and scratch) and
+``pyjac.kernels.launch`` (the C entry's call, :func:`_launch`).
 
 K1, K2 and K4, the kernels :mod:`pyjac_tpu_torch.libgen` exports, are
 also registered as PyTorch operators (``torch.ops.pyjac_tpu_torch.
@@ -45,6 +50,7 @@ import time
 
 import torch
 
+from ..profiling import span
 from .common import F64, _tracing
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
@@ -220,6 +226,16 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _launch(entry, args, dev, name: str, what: str) -> None:
+    """Call the C entry ``entry(*args)`` on ``dev`` under the span
+    ``pyjac.kernels.launch``, raise if it returns an error, and count
+    the launch under ``launches[name]``."""
+    with span('pyjac.kernels.launch'), torch.cuda.device(dev):
+        err = entry(*args)
+    _raise_on(err, what)
+    launches[name] += 1
+
+
 def _module_tables(mod, prefixes, int_names, dtype) -> list:
     """The table buffers of ``mod`` whose names start with one of
     ``prefixes``, in registration order (the C struct's), each checked
@@ -344,12 +360,14 @@ def stage_a_args(tabs, dims, y_t, P_t, plan=None):
                                               lib.pyjac_stage_a_n_tables()))
     cdims = (ctypes.c_int * 12)(*dims[:12])
     if plan is None:
-        plan = plan_ints(_plan(dims, True, F64, B, _n_sm(dev)))
+        with span('pyjac.kernels.plan'):
+            plan = plan_ints(_plan(dims, True, F64, B, _n_sm(dev)))
     cplan = _plan_arg(plan, lib.pyjac_stage_a_tile_rows(cdims), 'stage A')
-    out = {k: torch.empty((rows, B), dtype=F64, device=dev)
-           for k, rows in (('src', dims[12]), ('col0', N), ('f', N),
-                           ('post', dims[13]))}
-    scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
+    with span('pyjac.kernels.alloc'):
+        out = {k: torch.empty((rows, B), dtype=F64, device=dev)
+               for k, rows in (('src', dims[12]), ('col0', N), ('f', N),
+                               ('post', dims[13]))}
+        scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
     args = [ptrs, len(tabs), cdims, 12, _LN_PA_RU, _ptr(y_t), _ptr(P_t),
             B, *(_ptr(out[k]) for k in ('src', 'col0', 'f', 'post')),
             _ptr(scratch), cplan, 4, _stream(dev)]
@@ -374,44 +392,42 @@ def big_parts(mod, st_rows, roles, row0: int, rows: int, has_pm: bool):
     from .rates import _LN_PA_RU
     from .jacobian_big import PARTS_INT_TABLES
     dev, N, R, B = st_rows.device, mod.N, mod.R, st_rows.shape[-1]
-    _check('st_rows', st_rows, (5 + 3 * N, B), F64, dev)
-    _check('roles', roles, (mod.n_roles, R, B), F64, dev)
-    if not (0 <= row0 and 0 < rows and row0 + rows <= R):
-        raise ValueError('reaction rows [%d, %d) outside [0, %d)'
-                         % (row0, row0 + rows, R))
-    # the checked table pointers, kept on the module under the buffers'
-    # addresses (a 654-class pass is host-bound), so a moved or
-    # reassigned buffer is checked and passed anew
-    tabs = [t for k, t in mod._buffers.items() if k.startswith('kp_')]
-    key = ('big_parts', dev) + tuple(t.data_ptr() for t in tabs)
-    cache = mod._launch_cache
-    if key not in cache:
-        names = [k for k in mod._buffers if k.startswith('kp_')]
-        for k, t in zip(names, tabs):
-            want = torch.int32 if k[3:] in PARTS_INT_TABLES else F64
-            _check('BigJacobian.' + k, t, t.shape, want, dev)
+    with span('pyjac.kernels.prepare'):
+        _check('st_rows', st_rows, (5 + 3 * N, B), F64, dev)
+        _check('roles', roles, (mod.n_roles, R, B), F64, dev)
+        if not (0 <= row0 and 0 < rows and row0 + rows <= R):
+            raise ValueError('reaction rows [%d, %d) outside [0, %d)'
+                             % (row0, row0 + rows, R))
+        # the checked table pointers, kept on the module under the
+        # buffers' addresses (a 654-class pass is host-bound), so a moved
+        # or reassigned buffer is checked and passed anew
+        tabs = [t for k, t in mod._buffers.items() if k.startswith('kp_')]
+        key = ('big_parts', dev) + tuple(t.data_ptr() for t in tabs)
+        cache = mod._launch_cache
+        if key not in cache:
+            names = [k for k in mod._buffers if k.startswith('kp_')]
+            for k, t in zip(names, tabs):
+                want = torch.int32 if k[3:] in PARTS_INT_TABLES else F64
+                _check('BigJacobian.' + k, t, t.shape, want, dev)
+            lib = load()
+            if lib.pyjac_big_parts_n_tables() != len(tabs):
+                raise RuntimeError(
+                    'K5 table count mismatch: %d in Python, %d in the kernel'
+                    % (len(tabs), lib.pyjac_big_parts_n_tables()))
+            p = mod.packed
+            NT, NP = p.cheb_coef.shape[1:]
+            dims = [N, R, mod.Sf, mod.Sp, p.plog_lnP.shape[1], NT, NP,
+                    int(mod.conp), int(p.has_frac_nu)]
+            cache.clear()
+            cache[key] = (
+                (ctypes.c_void_p * len(tabs))(*key[2:]),
+                (ctypes.c_int * len(dims))(*dims), len(tabs), len(dims))
+        ptrs, cdims, n_tabs, n_dims = cache[key]
         lib = load()
-        if lib.pyjac_big_parts_n_tables() != len(tabs):
-            raise RuntimeError(
-                'K5 table count mismatch: %d in Python, %d in the kernel'
-                % (len(tabs), lib.pyjac_big_parts_n_tables()))
-        p = mod.packed
-        NT, NP = p.cheb_coef.shape[1:]
-        dims = [N, R, mod.Sf, mod.Sp, p.plog_lnP.shape[1], NT, NP,
-                int(mod.conp), int(p.has_frac_nu)]
-        cache.clear()
-        cache[key] = (
-            (ctypes.c_void_p * len(tabs))(*key[2:]),
-            (ctypes.c_int * len(dims))(*dims), len(tabs), len(dims))
-    ptrs, cdims, n_tabs, n_dims = cache[key]
-    lib = load()
-    with torch.cuda.device(dev):
-        err = lib.pyjac_big_parts(ptrs, n_tabs, cdims, n_dims, _LN_PA_RU,
-                                  _ptr(st_rows), B, row0, rows,
-                                  int(bool(has_pm)), _ptr(roles),
-                                  _stream(dev))
-    _raise_on(err, 'K5 reaction-parts kernel')
-    launches['big_parts'] += 1
+    _launch(lib.pyjac_big_parts,
+            (ptrs, n_tabs, cdims, n_dims, _LN_PA_RU, _ptr(st_rows), B, row0,
+             rows, int(bool(has_pm)), _ptr(roles), _stream(dev)),
+            dev, 'big_parts', 'K5 reaction-parts kernel')
     return roles
 
 
@@ -439,26 +455,26 @@ def _cols_sparse(mod, p1, post, prefix, name, what):
     ``mod`` over the rows of ``p1`` (J * Rmax, B); counts under
     ``name``."""
     dev, N, J, B = p1.device, mod.N, mod.J, p1.shape[-1]
-    _check('p1', p1, (J * mod.Rmax, B), F64, dev)
-    _check('post', post, (mod.n_post, B), F64, dev)
-    ptr, src, coef = (getattr(mod, prefix + k) for k in ('ptr', 'src', 'coef'))
-    owner = type(mod).__name__ + '.'
-    for tname, t, want, shape in ((prefix + 'ptr', ptr, torch.int32,
-                                   (J * N + 1,)),
-                                  (prefix + 'src', src, torch.int32,
-                                   src.shape),
-                                  (prefix + 'coef', coef, F64, src.shape),
-                                  ('inv_mw', mod.inv_mw, F64, (N,))):
-        _check(owner + tname, t, shape, want, dev)
-    lib = load()
-    out = torch.empty((J, N, B), dtype=F64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pyjac_big_cols_sparse(
-            _ptr(ptr), _ptr(src), _ptr(coef), _ptr(mod.inv_mw), _ptr(p1),
-            _ptr(post), _ptr(out), N, mod.Rmax, int(mod.conp), B,
-            _stream(dev))
-    _raise_on(err, what)
-    launches[name] += 1
+    with span('pyjac.kernels.prepare'):
+        _check('p1', p1, (J * mod.Rmax, B), F64, dev)
+        _check('post', post, (mod.n_post, B), F64, dev)
+        ptr, src, coef = (getattr(mod, prefix + k)
+                          for k in ('ptr', 'src', 'coef'))
+        owner = type(mod).__name__ + '.'
+        for tname, t, want, shape in ((prefix + 'ptr', ptr, torch.int32,
+                                       (J * N + 1,)),
+                                      (prefix + 'src', src, torch.int32,
+                                       src.shape),
+                                      (prefix + 'coef', coef, F64, src.shape),
+                                      ('inv_mw', mod.inv_mw, F64, (N,))):
+            _check(owner + tname, t, shape, want, dev)
+        lib = load()
+        with span('pyjac.kernels.alloc'):
+            out = torch.empty((J, N, B), dtype=F64, device=dev)
+    _launch(lib.pyjac_big_cols_sparse,
+            (_ptr(ptr), _ptr(src), _ptr(coef), _ptr(mod.inv_mw), _ptr(p1),
+             _ptr(post), _ptr(out), N, mod.Rmax, int(mod.conp), B,
+             _stream(dev)), dev, name, what)
     return out
 
 
@@ -468,30 +484,30 @@ def big_cols_dense(mod, roles, post):
     from the role array and the post rows, through the per-column active
     reactions and their CSR (``jacobian_big.dense_active_tables``)."""
     dev, N, R, J, B = roles.device, mod.N, mod.R, mod.J, roles.shape[-1]
-    _check('roles', roles, (mod.n_roles, R, B), F64, dev)
-    _check('post', post, (mod.n_post, B), F64, dev)
-    t = mod.tab('kd_')
-    A = t['act'].shape[1]
-    for name, want, shape in (('act', torch.int32, (J, A)),
-                              ('ptr', torch.int32, (J * N + 1,)),
-                              ('src', torch.int32, t['src'].shape),
-                              ('coef', F64, t['src'].shape),
-                              ('spf', torch.int32, (R, mod.Sf)),
-                              ('spp', torch.int32, (R, mod.Sp)),
-                              ('eff', F64, (R, N)),
-                              ('pd', torch.int32, (R,))):
-        _check('BigJacobian.kd_' + name, t[name], shape, want, dev)
-    _check('BigJacobian.inv_mw', mod.inv_mw, (N,), F64, dev)
-    lib = load()
-    out = torch.empty((J, N, B), dtype=F64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pyjac_big_cols_dense(
-            *(_ptr(t[k]) for k in ('act', 'ptr', 'src', 'coef', 'spf', 'spp',
-                                   'eff', 'pd')),
-            _ptr(mod.inv_mw), _ptr(roles), _ptr(post), _ptr(out), N, R,
-            mod.Sf, mod.Sp, A, int(mod.conp), B, _stream(dev))
-    _raise_on(err, 'K7 dense column kernel')
-    launches['big_cols_dense'] += 1
+    with span('pyjac.kernels.prepare'):
+        _check('roles', roles, (mod.n_roles, R, B), F64, dev)
+        _check('post', post, (mod.n_post, B), F64, dev)
+        t = mod.tab('kd_')
+        A = t['act'].shape[1]
+        for name, want, shape in (('act', torch.int32, (J, A)),
+                                  ('ptr', torch.int32, (J * N + 1,)),
+                                  ('src', torch.int32, t['src'].shape),
+                                  ('coef', F64, t['src'].shape),
+                                  ('spf', torch.int32, (R, mod.Sf)),
+                                  ('spp', torch.int32, (R, mod.Sp)),
+                                  ('eff', F64, (R, N)),
+                                  ('pd', torch.int32, (R,))):
+            _check('BigJacobian.kd_' + name, t[name], shape, want, dev)
+        _check('BigJacobian.inv_mw', mod.inv_mw, (N,), F64, dev)
+        lib = load()
+        with span('pyjac.kernels.alloc'):
+            out = torch.empty((J, N, B), dtype=F64, device=dev)
+    _launch(lib.pyjac_big_cols_dense,
+            (*(_ptr(t[k]) for k in ('act', 'ptr', 'src', 'coef', 'spf', 'spp',
+                                    'eff', 'pd')),
+             _ptr(mod.inv_mw), _ptr(roles), _ptr(post), _ptr(out), N, R,
+             mod.Sf, mod.Sp, A, int(mod.conp), B, _stream(dev)),
+            dev, 'big_cols_dense', 'K7 dense column kernel')
     return out
 
 
@@ -659,12 +675,10 @@ def _launch_dense(tabs, dims, y_t, P_t, dtype, plan=None):
     """K4's kernel in ``dtype`` (K4, or K3 in float32) on the tables and
     dims of :func:`dense_inputs`, counted: (Jt, f)."""
     entry, name, what = _DENSE_ENTRIES[dtype]
-    lib, args, Jt, f, _scratch = dense_args(tabs, dims, y_t, P_t, dtype,
-                                            plan)
-    with torch.cuda.device(y_t.device):
-        err = getattr(lib, entry)(*args)
-    _raise_on(err, what)
-    launches[name] += 1
+    with span('pyjac.kernels.prepare'):
+        lib, args, Jt, f, _scratch = dense_args(tabs, dims, y_t, P_t, dtype,
+                                                plan)
+    _launch(getattr(lib, entry), args, y_t.device, name, what)
     return Jt, f
 
 
@@ -687,11 +701,13 @@ def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
                                            lib.pyjac_dense_fused_n_tables()))
     cdims = (ctypes.c_int * len(dims))(*dims)
     if plan is None:
-        plan = plan_ints(_plan(dims, False, dtype, B, _n_sm(dev)))
+        with span('pyjac.kernels.plan'):
+            plan = plan_ints(_plan(dims, False, dtype, B, _n_sm(dev)))
     cplan = _plan_arg(plan, lib.pyjac_dense_fused_tile_rows(cdims), what)
-    Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
-    f = torch.empty((N, B), dtype=dtype, device=dev)
-    scratch = torch.empty((max(1, plan[4]),), dtype=dtype, device=dev)
+    with span('pyjac.kernels.alloc'):
+        Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
+        f = torch.empty((N, B), dtype=dtype, device=dev)
+        scratch = torch.empty((max(1, plan[4]),), dtype=dtype, device=dev)
     args = [ptrs, len(tabs), cdims, len(dims), _LN_PA_RU, _ptr(y_t),
             _ptr(P_t), B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4,
             _stream(dev)]
@@ -717,11 +733,10 @@ _OPS.define('dense_fused(Tensor[] tables, int[] dims, Tensor y_t, '
 
 def _stage_a_op(tables, dims, y_t, P_t, plan=None):
     """K1, counted: (src, col0, f, post) from :func:`stage_a_inputs`."""
-    lib, args, out, _scratch = stage_a_args(tables, dims, y_t, P_t, plan)
-    with torch.cuda.device(y_t.device):
-        err = lib.pyjac_stage_a(*args)
-    _raise_on(err, 'stage A kernel')
-    launches['stage_a'] += 1
+    with span('pyjac.kernels.prepare'):
+        lib, args, out, _scratch = stage_a_args(tables, dims, y_t, P_t,
+                                                plan)
+    _launch(lib.pyjac_stage_a, args, y_t.device, 'stage_a', 'stage A kernel')
     return out['src'], out['col0'], out['f'], out['post']
 
 
@@ -729,16 +744,16 @@ def _stage_b_op(tables, dims, src, post):
     """K2, counted: the (J, N, B) columns from :func:`stage_b_inputs`."""
     (N, conp, n_src, n_post), B = dims, src.shape[-1]
     dev = src.device
-    _check('src', src, (n_src, B), F64, dev)
-    _check('post', post, (n_post, B), F64, dev)
-    ptrs = table_ptrs(tables, F64, dev, 'stage B')
-    lib = load()
-    out = torch.empty((N - 1, N, B), dtype=F64, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pyjac_stage_b(*ptrs, _ptr(src), _ptr(post), _ptr(out), N,
-                                conp, B, _stream(dev))
-    _raise_on(err, 'stage B kernel')
-    launches['stage_b'] += 1
+    with span('pyjac.kernels.prepare'):
+        _check('src', src, (n_src, B), F64, dev)
+        _check('post', post, (n_post, B), F64, dev)
+        ptrs = table_ptrs(tables, F64, dev, 'stage B')
+        lib = load()
+        with span('pyjac.kernels.alloc'):
+            out = torch.empty((N - 1, N, B), dtype=F64, device=dev)
+    _launch(lib.pyjac_stage_b, (*ptrs, _ptr(src), _ptr(post), _ptr(out), N,
+                                conp, B, _stream(dev)),
+            dev, 'stage_b', 'stage B kernel')
     return out
 
 

@@ -6,6 +6,11 @@ pyjac/performance_tester/timer.h:24-53, tester.c.in:31):
 
 * :func:`trace` — ``torch.profiler`` around a block of work, the card's
   activity included where there is one, written as a Chrome trace;
+* :func:`span` and :func:`count` — the port's own named ranges and
+  counters, recorded only while a profiler records (a :func:`trace`
+  block, or any ``torch.profiler.profile``): the ranges land in its
+  trace on the clock of the card's records, the counts in
+  :data:`counters`;
 * :func:`cost_estimate` — the JAX package's closed-form operation /
   byte count per kernel per state, from the packed mechanism;
 * :func:`speed_of_light` — the roofline throughput of that count at this
@@ -29,6 +34,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from .ops.common import _tracing
 
 # NVIDIA H100 SXM peaks (the data sheet; they assume the 700 W power
 # limit): HBM3 bandwidth; FP64 outside the tensor cores (no port kernel
@@ -57,6 +64,43 @@ def trace(log_dir: str):
         if card:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+# the port's counts while a profiler records (:func:`count`):
+# ``integrate.state_slots``, the state rows the integrator's loop
+# computed; ``integrate.state_attempts``, the steps (accepted or
+# rejected) its states took
+counters: Dict[str, int] = {}
+
+_NULL = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records and no tracer
+    (``torch.export``, ``torch.compile``) runs the caller."""
+    return torch.autograd._profiler_enabled() and not _tracing()
+
+
+def span(name: str):
+    """A context naming the block it encloses in the profiler's trace
+    (``with span('pyjac.integrate.dydt'): ...``): a ``record_function``
+    while :func:`recording`, else one shared null context, so that with
+    no profiler a span costs a flag check and under a tracer an exported
+    graph holds no profiler op.  The port's spans: ``pyjac.jacobian``
+    (a Jacobian module's ``call_tr``), ``pyjac.kernels.{prepare, plan,
+    alloc, launch}`` (each launcher), ``pyjac.integrate`` and its loop's
+    ``pyjac.integrate.{iteration, dydt, jacobian, lu_factor, lu_solve,
+    control}``."""
+    if recording():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to ``counters[name]`` while :func:`recording`, so that
+    the counts cover what the spans cover."""
+    if recording():
+        counters[name] = counters.get(name, 0) + int(n)
 
 
 @dataclass

@@ -6,6 +6,7 @@ not installed; ``tests/conftest.py`` imports jax, so run it there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import collections
 import dataclasses
 import pathlib
 
@@ -71,6 +72,44 @@ def test_kernels_match_cpu_on_card(card):
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
     assert (np.abs(f - f0).max(-1) / np.abs(f0).max(-1)).max() < 1e-8
+
+
+def test_launch_spans_hold_the_kernels(card, tmp_path):
+    """One K1 + K2 call under ``profiling.trace``: one ``pyjac.jacobian``
+    span, a ``pyjac.kernels.prepare`` (K1's with a ``plan``, each with an
+    ``alloc``) and a ``pyjac.kernels.launch`` a kernel.  On the card's
+    timeline each launch span covers exactly its kernel, no other span
+    of a launcher covers any, and the operators' records still hold the
+    kernels' device time (what ``stage_a_ms`` / ``stage_b_ms`` read)."""
+    from torch.autograd import DeviceType
+    from pyjac_tpu_torch import profiling
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    sj = SparseJacobian(p, device=card)
+    y_t = torch.as_tensor(d['y'][:256].T.copy(), device=card)
+    P_t = torch.as_tensor(d['P'][None, :256].copy(), device=card)
+    sj.call_tr(y_t, P_t)
+    torch.cuda.synchronize(card)
+    with profiling.trace(str(tmp_path / 'trace')) as prof:
+        sj.call_tr(y_t, P_t)
+    ev = prof.events()
+    host = [e for e in ev if e.device_type == DeviceType.CPU]
+    assert collections.Counter(e.name for e in host
+                               if e.name.startswith('pyjac.')) == {
+        'pyjac.jacobian': 1, 'pyjac.kernels.prepare': 2,
+        'pyjac.kernels.plan': 1, 'pyjac.kernels.alloc': 2,
+        'pyjac.kernels.launch': 2}
+    on_card = [e for e in ev if e.device_type == DeviceType.CUDA]
+    kern = sorted((e.time_range.start, e.time_range.end) for e in on_card
+                  if 'sparse_stage_a' in e.name or 'sparse_stage_b' in e.name)
+    launch = sorted((e.time_range.start, e.time_range.end) for e in on_card
+                    if e.name == 'pyjac.kernels.launch')
+    assert len(kern) == 2 and launch == kern
+    assert not [e for e in on_card if e.name in (
+        'pyjac.kernels.prepare', 'pyjac.kernels.plan', 'pyjac.kernels.alloc')]
+    ops = sum(e.device_time_total for e in host if e.name in (
+        'pyjac_tpu_torch::stage_a', 'pyjac_tpu_torch::stage_b'))
+    assert ops == pytest.approx(sum(b - a for a, b in kern), rel=1e-6)
 
 
 @pytest.mark.parametrize('B', [1, 333])

@@ -2,11 +2,16 @@
 
 ``cost_estimate`` is the JAX package's closed form, so it must give the
 same numbers; ``speed_of_light`` reads this card's float64 peaks;
-``timed`` and ``trace`` work off the card; and ``roofline`` reproduces
+``timed`` and ``trace`` work off the card; ``roofline`` reproduces
 the bound of every port kernel that ``PERF.md`` section 6 reports, from
-the modules' tables and the outputs' shapes alone.
+the modules' tables and the outputs' shapes alone; and ``span`` /
+``count`` record only under a profiler, nest the integrator's spans as
+its loop runs, leave its results as they are and stay out of an
+exported graph.
 """
 
+import collections
+import contextlib
 import json
 import pathlib
 
@@ -17,7 +22,7 @@ import torch
 from pyjac_tpu.core.mech import Mechanism as JMechanism
 from pyjac_tpu.core.pack import pack as jpack
 from pyjac_tpu.profiling import cost_estimate as jcost_estimate
-from pyjac_tpu_torch import profiling
+from pyjac_tpu_torch import integrate, libgen, profiling
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian, finish,
                                               source_stack, state_thermo)
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian
@@ -195,3 +200,103 @@ def test_chip_smoke_takes_bounds_from_roofline():
     for gone in ('HBM_BYTES_S = ', 'F64_FLOP_S = ', 'def stage_a_bound',
                  'def dense_bound', 'def dense_ops', 'def nbytes'):
         assert gone not in src, gone
+
+
+# per-state horizons: the first state is done before the loop starts,
+# the others run out of their budget of 8 attempts, some rejected
+HORIZONS = np.array([0.0, 1e-9, 2e-9, 1e-8])
+
+
+def _integrate(method):
+    """The plain path's integration of 4 random states of the 9/24
+    synth, 8 loop iterations."""
+    mech, p = _mech('synth')
+    y, _, P = random_states(mech, len(HORIZONS), seed=3)
+    return integrate(p, y, P, HORIZONS, rtol=1e-3, atol=1e-6, max_steps=8,
+                     method=method, device='cpu')
+
+
+def _profiled(fn):
+    """(``fn()``, the profiler's events) under a CPU ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def test_spans_and_counters_are_off_without_a_profiler():
+    """With no profiler a span is one shared null context and a count
+    adds nothing, inside the integrator too."""
+    profiling.counters.clear()
+    assert profiling.span('a') is profiling.span('b')
+    assert isinstance(profiling.span('a'), contextlib.nullcontext)
+    assert not profiling.recording()
+    profiling.count('integrate.state_slots', 3)
+    _integrate('ros23')
+    assert profiling.counters == {}
+
+
+@pytest.mark.parametrize('method,solves', [('ros23', 3), ('rodas3', 4)])
+def test_integrate_spans_and_counters(method, solves):
+    """Under a profiler a call records ``pyjac.integrate``, one
+    ``iteration`` a loop iteration, and in each 3 ``dydt``, 1
+    ``jacobian``, 1 ``lu_factor``, 3 (RODAS3 4) ``lu_solve`` and 1
+    ``control``; the counters hold B rows an iteration and every step
+    the states took; the results are bit-equal to an unprofiled call."""
+    off = _integrate(method)
+    profiling.counters.clear()
+    on, events = _profiled(lambda: _integrate(method))
+    for a, b in zip(off, on):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
+    n = on.iterations
+    it = 'pyjac.integrate.iteration'
+    got = collections.Counter(
+        (e.name, e.cpu_parent.name if e.cpu_parent else None)
+        for e in events if e.name.startswith('pyjac.'))
+    assert got == {('pyjac.integrate', None): 1,
+                   (it, 'pyjac.integrate'): n,
+                   ('pyjac.integrate.dydt', it): 3 * n,
+                   ('pyjac.integrate.jacobian', it): n,
+                   ('pyjac.integrate.lu_factor', it): n,
+                   ('pyjac.integrate.lu_solve', it): solves * n,
+                   ('pyjac.integrate.control', it): n}
+    attempts = int((on.steps + on.rejected).sum())
+    assert int(on.rejected.sum()) > 0
+    assert profiling.counters == {
+        'integrate.state_slots': len(HORIZONS) * n,
+        'integrate.state_attempts': attempts}
+    assert attempts < len(HORIZONS) * n
+
+
+def test_entry_span_holds_the_module_call():
+    """``call_tr`` of a Jacobian module is one ``pyjac.jacobian`` span
+    (on the CPU the plain versions, so no launch span)."""
+    mech, p = _mech('synth')
+    y, _, P = random_states(mech, 4, seed=3)
+    y_t = torch.as_tensor(np.ascontiguousarray(y.T))
+    P_t = torch.as_tensor(P[None].copy())
+    for cls in (SparseJacobian, DenseJacobian, BigJacobian):
+        mod = cls(p, device='cpu')
+        _, events = _profiled(lambda: mod.call_tr(y_t, P_t))
+        assert [e.name for e in events if e.name.startswith('pyjac.')] == \
+            ['pyjac.jacobian']
+
+
+@pytest.mark.parametrize('name', ['jacobian_dd_sparse', 'jacobian_dd'])
+def test_export_under_a_profiler_holds_no_profiler_op(name):
+    """An entry exported while a profiler records (on ``meta``, shapes
+    only) calls the operators and no profiler op: under a tracer (here a
+    fake tensor mode, as the export runs) a span is the null context."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    p = _mech('synth')[1]
+    prog, _ = _profiled(lambda: libgen.export_kernel(p, name, True, 'meta'))
+    called = [str(n.target) for n in prog.graph.nodes
+              if n.op == 'call_function']
+    assert any('pyjac_tpu_torch' in c for c in called)
+    assert not any('profiler' in c for c in called), called
+
+    def traced_span():
+        with FakeTensorMode():
+            return profiling.span('pyjac.jacobian')
+    assert _profiled(traced_span)[0] is profiling.span('pyjac.jacobian')
