@@ -79,9 +79,13 @@ non-zero at once:
     flagship's through ``SparseJacobian(fuse_gather=False)``;
 11. the integrate path: the flagship PaSR states tiled to B = 32768
     through ``integrate(..., 1e-4, jacobian='dd', method='ros23')`` (one
-    warm-up, best of 3 with CUDA events; every state must succeed, and
-    K4 launch once per loop iteration), its ``torch.profiler`` split per
-    iteration, K4 alone beside its plain version and bound; then
+    warm-up, best of 3 with CUDA events; every state must succeed, K4
+    and the LU factor launch once per loop iteration and the LU solve
+    three times), its ``torch.profiler`` split per iteration, K4 alone
+    beside its plain version and bound; 11e the LU kernels against the
+    card library on W = I - s J from K4's output there (equal pivots and
+    ok, LU, the solves' forward error; ``phase_lu``), each beside its
+    plain version, the library call and its byte bound; then
     ``jacobian='dd'`` against ``'xla'`` (equal steps, endpoints) for
     ROS23 and RODAS3 on 4096 states and for 256 states heated by
     300 K; then the ``fuse_gather=False`` flagship path at B = 131072
@@ -191,9 +195,10 @@ from pyjac_tpu_torch.libgen import generate_library  # noqa: E402
 from pyjac_tpu_torch.ops.dydt import dydt  # noqa: E402
 from pyjac_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from pyjac_tpu_torch.profiling import (  # noqa: E402
-    F32_FLOP_S, F64_FLOP_S, roofline)
+    F32_FLOP_S, F64_FLOP_S, HBM_BYTES_S, roofline)
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
-from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate  # noqa: E402
+from pyjac_tpu_torch.integrate import (  # noqa: E402
+    STATUS_SUCCESS, integrate, lu_factor, lu_solve)
 from pyjac_tpu_torch.ops.jacobian import (  # noqa: E402
     jacobian_and_dydt, reaction_parts)
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
@@ -224,6 +229,15 @@ DATA = os.path.join(HERE, 'tests', 'data')
 
 # tolerances (kernel vs plain version on the card: the kernels sum in
 # another order than torch's reductions and matmuls, so not bit-exact)
+# The integrator's LU kernels against the card library on the same W
+# (phase 11e): LU over each state's largest |LU|, the pivots equal (read
+# 5.7e-17 on an H100 at the integrate cell's shape); the solves' forward
+# error against an extended-precision refinement at most LU_FWD_RATIO
+# times the library's (W = I - s J is ill-conditioned at these step
+# sizes, and every f64 solver reads ~1e-10 there: the kernel 1.03e-10,
+# the card library 6.6e-11, LAPACK 1.6e-10)
+TOL_LU = 1e-12
+LU_FWD_RATIO = 2.0
 TOL_ELEMENTWISE = 1e-12   # rows without a stoichiometric or net-rate sum,
 #                           per-row norm-relative
 TOL_NET = 1e-8            # arrays that sum net rates, norm-relative per
@@ -1418,8 +1432,12 @@ def integrate_profile(fn, iters, card):
     ranges = {'smoke.dydt': 0.0, 'smoke.lu_factor': 0.0,
               'smoke.lu_solve': 0.0}
     by_name = {}
+    # host ranges (these and the port's own spans) are also drawn on the
+    # device timeline, over their kernels: they are no device work
+    host = {ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CPU}
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and ev.name not in ranges:
+        if ev.device_type == DeviceType.CUDA and ev.name not in host:
             # (a range's own span on the device timeline is not busy
             # time: its kernels are counted one by one)
             t = ev.device_time / 1e3
@@ -1474,10 +1492,106 @@ def same_run(a, b, what):
     return err
 
 
+def exact_solution(W, rhs, x):
+    """The solutions of W x = rhs, (B, N), to well below an f64 solver's
+    forward error: ``x`` (an f64 solve) after one step of refinement with
+    its residual in numpy's extended precision, on the host."""
+    Wl = W.cpu().numpy().astype(np.longdouble)
+    xl = x.cpu().numpy().astype(np.longdouble)
+    r = rhs.cpu().numpy().astype(np.longdouble) - np.einsum(
+        'bij,bj->bi', Wl, xl)
+    dx = np.linalg.solve(W.cpu().numpy(), r.astype(np.float64)[..., None])
+    return (xl + dx[..., 0]).astype(np.float64)
+
+
+def forward_error(x, exact):
+    """The largest error of a state's solve over its largest |exact|."""
+    return float((np.abs(x.cpu().numpy() - exact).max(-1) /
+                  np.abs(exact).max(-1)).max())
+
+
+def phase_lu(Jt, card):
+    """Phase 11e: the integrator's LU kernels (``integrate.lu_factor`` /
+    ``lu_solve``, which take them on the card) at the integrate cell's
+    shape, W = I - s J from K4's output ``Jt`` (N, N, B), read where K4
+    leaves it, with s = h gamma log-uniform over the cell's range [1e-11,
+    3e-5] (seeded), against the library on the same W
+    (``torch.linalg.lu_factor_ex`` / ``lu_solve``): one launch each,
+    equal pivots and ok, LU within TOL_LU, the solve's forward error
+    within LU_FWD_RATIO times the library's.  Each kernel is timed beside
+    its plain version (the path off the chip: W formed in torch, then the
+    library; the solve's is the library's call), the library call alone
+    and its byte bound.  Returns {'ms', 'errs', 'bounds'}; ``errs``: the
+    LU's error and the solve's forward error."""
+    N, B = Jt.shape[0], Jt.shape[-1]
+    dev = Jt.device
+    J = Jt.permute(2, 1, 0)
+    s = torch.as_tensor(10.0 ** np.random.default_rng(17).uniform(
+        -11, np.log10(3e-5), B), device=dev)
+    rhs = torch.as_tensor(np.random.default_rng(5).standard_normal((B, N)),
+                          device=dev)
+    eye = torch.eye(N, dtype=F64, device=dev)
+
+    def plain_factor():
+        return torch.linalg.lu_factor_ex(eye - s[:, None, None] * J,
+                                         check_errors=False)
+
+    W = eye - s[:, None, None] * J
+    LUr, pivr, info = torch.linalg.lu_factor_ex(W, check_errors=False)
+    xr = torch.linalg.lu_solve(LUr, pivr, rhs[..., None])[..., 0]
+    before = dict(kernels.launches)
+    fac = lu_factor(J, s)
+    x = lu_solve(fac, rhs)
+    torch.cuda.synchronize(dev)
+    n = {k: kernels.launches[k] - before[k] for k in ('lu_factor', 'lu_solve')}
+    check(n == {'lu_factor': 1, 'lu_solve': 1}, 'LU launches %s' % n)
+    LU, piv, ok = fac
+    differ = int((piv != pivr).any(-1).sum())
+    check(differ == 0, 'LU pivots differ from the library\'s in %d states'
+          % differ)
+    check(torch.equal(ok, info == 0) and bool(ok.all()),
+          'LU ok %d of %d, the library\'s %d' % (
+              int(ok.sum()), B, int((info == 0).sum())))
+    lu_err = float(((LU - LUr).abs().amax((1, 2)) /
+                    LUr.abs().amax((1, 2))).max())
+    exact = exact_solution(W, rhs, xr)
+    fwd, fwd_lib = forward_error(x, exact), forward_error(xr, exact)
+    print('phase 11e LU kernels: B=%d, N=%d, W = I - s J from K4, s '
+          'log-uniform over [1e-11, 3e-5]; pivots and ok equal to the '
+          'library\'s, LU %.3e of each state\'s largest |LU| (<= %.0e), '
+          'solve forward error %.3e, the library\'s %.3e (<= %.0fx) (%s)' % (
+              B, N, lu_err, TOL_LU, fwd, fwd_lib, LU_FWD_RATIO, card))
+    check(lu_err <= TOL_LU, 'LU %.3e > %.0e' % (lu_err, TOL_LU))
+    check(fwd <= LU_FWD_RATIO * fwd_lib, 'LU solve forward error %.3e > '
+          '%.0f x the library\'s %.3e' % (fwd, LU_FWD_RATIO, fwd_lib))
+
+    ms = {'lu_factor': per_call_ms(lambda: lu_factor(J, s)),
+          'lu_factor_plain': best_ms(plain_factor),
+          'lu_factor_lib': best_ms(
+              lambda: torch.linalg.lu_factor_ex(W, check_errors=False)),
+          'lu_solve': per_call_ms(lambda: lu_solve(fac, rhs))}
+    ms['lu_solve_plain'] = ms['lu_solve_lib'] = best_ms(
+        lambda: torch.linalg.lu_solve(LUr, pivr, rhs[..., None]))
+    # bytes: J, s in and LU, pivots, ok out; LU, pivots, rhs in and x out
+    mat = N * N * B * 8
+    bounds = {'lu_factor': ((2 * mat + B * 8 + N * B * 4 + B) /
+                            HBM_BYTES_S * 1e3, 'bytes'),
+              'lu_solve': ((mat + N * B * 4 + 2 * N * B * 8) /
+                           HBM_BYTES_S * 1e3, 'bytes')}
+    for name in ('lu_factor', 'lu_solve'):
+        print('  %s: kernel %.3f ms, plain version %.3f ms, library call '
+              '%.3f ms, bound %.3f ms (%s) (B=%d, %s)' % (
+                  name, ms[name], ms[name + '_plain'], ms[name + '_lib'],
+                  bounds[name][0], bounds[name][1], B, card))
+    return {'ms': ms, 'errs': {'lu_factor': lu_err, 'lu_solve': fwd},
+            'bounds': bounds}
+
+
 def phase_integrate(packed, device, sizes, card):
     """Phase 11: the integrator at full width (jacobian='dd': K4 once per
-    loop iteration), its profiler split, 'dd' against 'xla' on slices,
-    and the fuse_gather=False flagship path timed."""
+    loop iteration), its profiler split, K4 and the LU kernels (11e)
+    alone at its shape, 'dd' against 'xla' on slices, and the
+    fuse_gather=False flagship path timed."""
     res = {'ms': {}}
     B = sizes['integrate']
     y, P = flagship_states(B)
@@ -1504,6 +1618,10 @@ def phase_integrate(packed, device, sizes, card):
     check(counts['dense_fused'] == 4 * r.iterations,
           'K4 launches %d != 4 runs x %d iterations' % (
               counts['dense_fused'], r.iterations))
+    check(counts['lu_factor'] == 4 * r.iterations and
+          counts['lu_solve'] == 12 * r.iterations,
+          'LU launches %d / %d != 4 runs x %d iterations x 1 / 3' % (
+              counts['lu_factor'], counts['lu_solve'], r.iterations))
     res.update(counts_integrate=counts, wall=wall, iterations=r.iterations)
     res['split'] = integrate_profile(run, r.iterations, card)
 
@@ -1514,6 +1632,7 @@ def phase_integrate(packed, device, sizes, card):
     res['ms']['dense_fused_plain'] = best_ms(
         lambda: dense_reference(packed, y_t, P_t, True), reps=2)
     res['bound'] = bound_of(dj, B, 'dense_fused')
+    Jt = dj.call_tr(y_t, P_t)[0]
     ops = res['bound'][2]
     print('  dense_fused: kernel %.3f ms, plain version %.3f ms, library call '
           'none, bound %.3f ms (%s; %.4e operations: %.3f ms at %.0e/s) '
@@ -1521,7 +1640,8 @@ def phase_integrate(packed, device, sizes, card):
               res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
               res['bound'][0], res['bound'][1], ops, ops / F64_FLOP_S * 1e3,
               F64_FLOP_S, B, plan_tag(card_plan(dj, F64, B)), card))
-    del dj, out
+    res['lu'] = phase_lu(Jt, card)
+    del dj, out, Jt
     torch.cuda.empty_cache()
 
     # 'dd' against 'xla' on slices: the PaSR states, both methods, and the
@@ -2620,7 +2740,8 @@ def phase_examples(device, card):
     """Phase 19: the examples on the card, each through its ``main``
     with its launch counters set to 0 just before and read just after.
     ``ignition_delay`` on ``IGN_ARGS``' grid (its stage Jacobian from K4,
-    one launch per loop iteration; no other kernel) against the same call
+    one launch per loop iteration, the LU kernels' factor once and solve
+    three times an iteration; no other kernel) against the same call
     with ``--device cpu``: every state ignited on both (a probe found its
     delay: ``examples.ignition_delay.ignited``), and the delays within one
     bisection bracket of the CPU's (the two stage Jacobians round apart,
@@ -2650,9 +2771,11 @@ def phase_examples(device, card):
           ref['ignited'].all(), 'ignition_delay: a state did not ignite '
           'within t_end: %s (CPU %s)' % (out['tau'], ref['tau']))
     check(diff <= bracket, 'ignition_delay: card vs CPU %.3e s' % diff)
-    check(ign['dense_fused'] > 0 and all(
-        v == 0 for k, v in ign.items() if k != 'dense_fused'),
-        'ignition_delay launched %s' % ign)
+    check(ign['dense_fused'] > 0 and ign['lu_factor'] == ign['dense_fused']
+          and ign['lu_solve'] == 3 * ign['dense_fused'] and all(
+              v == 0 for k, v in ign.items()
+              if k not in ('dense_fused', 'lu_factor', 'lu_solve')),
+          'ignition_delay launched %s' % ign)
 
     kernels.reset_launches()
     m = ex_multichip.main(MULTI_ARGS)
@@ -2765,11 +2888,28 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
     examples (``examples``) and the float32 library (``libgen_f32``)
     included; ``wide`` the kernel at the wide mechanism's shape (phase
     18): its time, its plain version's, its bound, the library call's and
-    its largest difference from its plain version."""
+    its largest difference from its plain version.  Then the
+    integrator's LU kernels, which replace no TPU kernel: their rows
+    (phase 11e) hold, as ``max_abs_err``, the factor's LU error and the
+    solve's forward error, and no ``wide`` (phase 18 integrates
+    nothing)."""
     flag = {'flagship': main_res['counts'],
             'flagship_unfused': integ['counts_unfused'],
             'synth53': synth['counts'],
             'synth53_unfused': synth['counts_unfused']}
+
+    def other_paths(name, by_path):
+        for method in ('dd-sparse', 'dd', 'pallas'):
+            by_path['perf_' + method.replace('-', '_')] = \
+                front['counts'][method][name]
+        by_path['libgen'] = lib['counts'].get(name, 0)
+        by_path['mesh'] = msh['counts'].get(name, 0)
+        for path, c in wide['counts'].items():
+            by_path[path] = c[name]
+        by_path['examples'] = ex['counts'][name]
+        by_path['libgen_f32'] = lib32['counts'].get(name, 0)
+        return by_path
+
     rows = []
     for name, src, line in (
             ('stage_a', 'sparse_stage_a.cu', 'pallas_dd.py:2099'),
@@ -2801,15 +2941,7 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
                        for p in ('654', 'usc', '654_dense')}
             main_path = '654_dense' if name == 'big_cols_dense' else '654'
             b_ms, b_by, _ = big['bounds'][name]
-        for method in ('dd-sparse', 'dd', 'pallas'):
-            by_path['perf_' + method.replace('-', '_')] = \
-                front['counts'][method][name]
-        by_path['libgen'] = lib['counts'].get(name, 0)
-        by_path['mesh'] = msh['counts'].get(name, 0)
-        for path, c in wide['counts'].items():
-            by_path[path] = c[name]
-        by_path['examples'] = ex['counts'][name]
-        by_path['libgen_f32'] = lib32['counts'].get(name, 0)
+        other_paths(name, by_path)
         wm = wide['ms']
         rows.append(dict(
             name=name, route='cuda', source='pyjac_tpu_torch/csrc/' + src,
@@ -2822,6 +2954,19 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
                       bound_by=wide['bounds'][name][1],
                       library_ms=wm.get(name + '_lib'),
                       max_abs_err=wide['errs'][name])))
+    lu = integ['lu']
+    for name in ('lu_factor', 'lu_solve'):
+        by_path = other_paths(
+            name, {'integrate': integ['counts_integrate'][name]})
+        rows.append(dict(
+            name=name, route='cuda',
+            source='pyjac_tpu_torch/csrc/batched_lu.cu',
+            replaces='none (XLA gauss_solve: pyjac_tpu/integrate.py:33)',
+            launches=by_path['integrate'], max_abs_err=lu['errs'][name],
+            ms=lu['ms'][name], plain_ms=lu['ms'][name + '_plain'],
+            bound_ms=lu['bounds'][name][0], bound_by=lu['bounds'][name][1],
+            library_ms=lu['ms'][name + '_lib'], launches_by_path=by_path,
+            wide=None))
     return rows
 
 

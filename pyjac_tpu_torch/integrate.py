@@ -13,19 +13,22 @@ The stage Jacobian comes from the plain f64 ``eval_jacobian``
 :class:`~pyjac_tpu_torch.ops.jacobian_dense.DenseJacobian`
 (``jacobian='dd'``: the fused kernel K4 on the card, its plain version on
 the CPU).  The iteration matrix ``W = I - h gamma J`` is factored once per
-step with ``torch.linalg.lu_factor_ex`` and every stage solves with
-``torch.linalg.lu_solve``; the JAX package's ``gauss_solve`` (an
-elimination written because XLA:TPU could not compile an f64 LU) is not
-ported.
+step and every stage solves with its factors: on the card, for N up to
+``kernels.LU_MAX_N``, by the batched LU of ``csrc/batched_lu.cu``, which
+forms W as it loads J; otherwise W is formed here and factored with
+``torch.linalg.lu_factor_ex`` and solved with ``torch.linalg.lu_solve``.
+The JAX package's ``gauss_solve`` (an elimination written because
+XLA:TPU could not compile an f64 LU) is not ported.
 
 While a profiler records, a call is one span ``pyjac.integrate`` holding
 one ``pyjac.integrate.iteration`` a loop iteration, and each iteration
 the spans ``pyjac.integrate.dydt`` (each dy/dt), ``.jacobian`` (the
-stage Jacobian and ``W``), ``.lu_factor``, ``.lu_solve`` (each stage
-solve) and ``.control`` (the error norm, the step controller and the
-masked updates); ``profiling.counters`` gains the state rows the loop
-computed (``integrate.state_slots``) and the steps its states took,
-accepted or rejected (``integrate.state_attempts``).
+stage Jacobian), ``.lu_factor`` (``W`` and its factor), ``.lu_solve``
+(each stage solve) and ``.control`` (the error norm, the step controller
+and the masked updates); ``profiling.counters`` gains the state rows the
+loop computed (``integrate.state_slots``), the steps its states took,
+accepted or rejected (``integrate.state_attempts``), and the factors the
+LU kernel took (``integrate.lu_kernel``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from .ops.common import as_f64, entry_device
 from .ops.dydt import dydt as dydt_dispatch
 from .ops.jacobian import eval_jacobian
+from .ops.kernels import lu_on_chip
 from .profiling import count, recording, span
 
 _D = 1.0 / (2.0 + math.sqrt(2.0))
@@ -61,17 +65,30 @@ class IntegrateResult(NamedTuple):
     iterations: int          # loop iterations (attempted batch steps)
 
 
-def lu_factor(W):
-    """Factor the (B, N, N) iteration matrices.  Returns (LU, pivots,
-    ok): ``ok`` (B,) is False where a pivot is exactly zero (a singular
-    or non-finite W), whose solves are then not finite."""
-    LU, piv, info = torch.linalg.lu_factor_ex(W, check_errors=False)
+def lu_factor(J, s):
+    """Factor the iteration matrices ``W_b = I - s_b J_b`` of the (B, N,
+    N) stage Jacobians ``J`` (any strides: K4's (column, row, batch)
+    output permuted, or a contiguous array) and the (B,) scales ``s``
+    (h gamma).  Returns (LU, pivots, ok): ``ok`` (B,) is False where a
+    pivot is exactly zero (a singular W), whose solves are then not
+    finite, as are those of a non-finite W.  LU is (B, N, N) and the
+    pivots (B, N) on either path: where :func:`lu_on_chip`, the kernel
+    forms and factors W in one launch; elsewhere W is formed here and
+    the library factors it."""
+    if lu_on_chip(J):
+        count('integrate.lu_kernel', 1)
+        return tuple(torch.ops.pyjac_tpu_torch.lu_factor(J, s))
+    eye = torch.eye(J.shape[-1], dtype=J.dtype, device=J.device)
+    LU, piv, info = torch.linalg.lu_factor_ex(eye - s[:, None, None] * J,
+                                              check_errors=False)
     return LU, piv, info == 0
 
 
 def lu_solve(fac, rhs):
     """Solve W x = rhs, (B, N), with the factors of :func:`lu_factor`."""
     LU, piv, _ = fac
+    if lu_on_chip(rhs):
+        return torch.ops.pyjac_tpu_torch.lu_solve(LU, piv, rhs.contiguous())
     return torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
 
 
@@ -112,7 +129,7 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
 def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
                first_step, jacobian, method, device):
     y0 = as_f64(y0, device)
-    B, N = y0.shape
+    B = y0.shape[0]
     param = torch.broadcast_to(as_f64(param, device), (B,))
     t_end = torch.broadcast_to(as_f64(t_end, device), (B,))
 
@@ -137,7 +154,6 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
         h = t_end * 1e-6
     else:
         h = torch.full((B,), first_step, dtype=y0.dtype, device=device)
-    eye = torch.eye(N, dtype=y0.dtype, device=device)
     gamma = _D if method == 'ros23' else 0.5
 
     y = y0
@@ -156,9 +172,9 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
 
             F0 = f(y)
             with span('pyjac.integrate.jacobian'):
-                W = eye - (hs * gamma)[:, None, None] * jac(y)
+                J = jac(y)
             with span('pyjac.integrate.lu_factor'):
-                fac = lu_factor(W)
+                fac = lu_factor(J, hs * gamma)
 
             def solve(rhs):
                 with span('pyjac.integrate.lu_solve'):

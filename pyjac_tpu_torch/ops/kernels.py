@@ -34,8 +34,12 @@ plan.  :func:`stage_a`, :func:`stage_b` and :func:`dense_fused` always go
 through them, so the live path and an exported program run the same
 code.  A module's tables and dims are gathered once
 (:func:`stage_a_inputs`, :func:`stage_b_inputs`, :func:`dense_inputs`)
-and their pointers checked once (:func:`table_ptrs`).  Importing this
-module registers the operators.
+and their pointers checked once (:func:`table_ptrs`).  The integrator's
+batched LU (``csrc/batched_lu.cu``) is registered likewise, as
+``pyjac_tpu_torch::lu_factor`` and ``::lu_solve``: it takes every
+iteration matrix of width up to :data:`LU_MAX_N` on the card
+(:func:`lu_on_chip`), called by ``integrate.lu_factor`` /
+``lu_solve``.  Importing this module registers the operators.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ from .common import F64, _tracing
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
-           'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu')
+           'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu',
+           'batched_lu.cu')
 # device code the sources include (part of the build's hash)
 HEADERS = ('kinetics.cuh', 'state_tile.cuh', 'columns.cuh')
 ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
@@ -68,7 +73,7 @@ NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
 # plain launch counters: one per kernel, bumped where it launches
 launches = {'stage_a': 0, 'stage_b': 0, 'stage_b_x': 0, 'big_parts': 0,
             'big_cols_sparse': 0, 'big_cols_dense': 0, 'dense_fused': 0,
-            'fused_f32': 0}
+            'fused_f32': 0, 'lu_factor': 0, 'lu_solve': 0}
 
 # what the last build did: seconds, library path, nvcc's output
 build_info = {}
@@ -180,6 +185,13 @@ def load():
     lib.pyjac_dense_fused.restype = ci
     lib.pyjac_fused_f32.argtypes = lib.pyjac_dense_fused.argtypes
     lib.pyjac_fused_f32.restype = ci
+    lib.pyjac_lu_state_bytes.argtypes = [ci]
+    lib.pyjac_lu_state_bytes.restype = cll
+    lib.pyjac_lu_factor.argtypes = [vp, cll, cll, cll, vp, ci, cll, ci, vp,
+                                    vp, vp, vp]
+    lib.pyjac_lu_factor.restype = ci
+    lib.pyjac_lu_solve.argtypes = [vp, vp, vp, vp, ci, cll, vp]
+    lib.pyjac_lu_solve.restype = ci
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
@@ -641,6 +653,36 @@ def _plan(dims, sparse: bool, dtype, B: int, n_sm: int, tile=None,
                 smem_bytes=smem, scratch_elems=scratch)
 
 
+def lu_state_bytes(N: int) -> int:
+    """Shared memory one state takes in the LU factor
+    (``lu_state_bytes`` in ``csrc/batched_lu.cu``, which the launcher
+    checks): the N x N matrix with an odd row stride, two pivot values
+    and their reciprocals, two row orders and N pivots."""
+    return N * (N | 1) * 8 + 4 * 8 + 3 * N * 4
+
+
+# the widest iteration matrix one block of the LU factor holds on chip
+LU_MAX_N = max(n for n in range(1, 256) if lu_state_bytes(n) <= SMEM_MAX)
+
+
+def lu_on_chip(x) -> bool:
+    """Whether the LU kernels take the matrices of ``x`` (a stage
+    Jacobian or a right-hand side, N its last dimension): on the card,
+    up to :data:`LU_MAX_N`.  Elsewhere the integrator forms W in torch
+    and the library factors it."""
+    return x.device.type == 'cuda' and x.shape[-1] <= LU_MAX_N
+
+
+def lu_tile(N: int) -> int:
+    """States a block of the LU factor keeps, ``LU_WARPS`` warps each
+    (``csrc/batched_lu.cu``): two where they fit one block's shared
+    memory, else one.  Two beat one and four at the flagship on the card
+    (PERF.md): half a 32 B sector of a batch-minor J a load, and as many
+    states resident on an SM.  A state's result does not depend on its
+    tile."""
+    return 2 if 2 * lu_state_bytes(N) <= SMEM_MAX else 1
+
+
 def _n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -729,6 +771,8 @@ _OPS.define('stage_b(Tensor[] tables, int[] dims, Tensor src, Tensor post) '
             '-> Tensor')
 _OPS.define('dense_fused(Tensor[] tables, int[] dims, Tensor y_t, '
             'Tensor P_t, int[]? plan=None) -> (Tensor, Tensor)')
+_OPS.define('lu_factor(Tensor J, Tensor s) -> (Tensor, Tensor, Tensor)')
+_OPS.define('lu_solve(Tensor LU, Tensor piv, Tensor rhs) -> Tensor')
 
 
 def _stage_a_op(tables, dims, y_t, P_t, plan=None):
@@ -762,9 +806,64 @@ def _dense_fused_op(tables, dims, y_t, P_t, plan=None):
     return _launch_dense(tables, dims, y_t, P_t, F64, plan)
 
 
+def _lu_factor_op(J, s):
+    """The LU factor, counted: W_b = I - s_b J_b of the (B, N, N) stage
+    Jacobians ``J`` (any strides) and the (B,) scales ``s``, formed as
+    the kernel loads J.  Returns LU (B, N, N) (L below the diagonal, U on
+    and above it), the 1-based pivots (B, N) int32 and ok (B,) bool, as
+    ``torch.linalg.lu_factor_ex`` would, :func:`lu_tile` states a
+    block."""
+    dev = J.device
+    with span('pyjac.kernels.prepare'):
+        B, N = J.shape[0], J.shape[-1]
+        _on_card('J', J)
+        if J.dtype != F64 or tuple(J.shape) != (B, N, N):
+            raise ValueError('J: expected float64 (B, N, N), got %s %s'
+                             % (J.dtype, tuple(J.shape)))
+        if N > LU_MAX_N:
+            raise ValueError('N = %d exceeds the %d one block of the LU '
+                             'factor holds' % (N, LU_MAX_N))
+        _check('s', s, (B,), F64, dev)
+        lib = load()
+        if lib.pyjac_lu_state_bytes(N) != lu_state_bytes(N):
+            raise RuntimeError('LU factor: state bytes mismatch: %d in '
+                               'Python, %d in the kernel'
+                               % (lu_state_bytes(N),
+                                  lib.pyjac_lu_state_bytes(N)))
+        with span('pyjac.kernels.alloc'):
+            LU = torch.empty((B, N, N), dtype=F64, device=dev)
+            piv = torch.empty((B, N), dtype=torch.int32, device=dev)
+            ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    _launch(lib.pyjac_lu_factor,
+            (_ptr(J), *J.stride(), _ptr(s), N, B,
+             lu_tile(N), _ptr(LU), _ptr(piv), _ptr(ok), _stream(dev)),
+            dev, 'lu_factor', 'LU factor kernel')
+    return LU, piv, ok
+
+
+def _lu_solve_op(LU, piv, rhs):
+    """The LU solve, counted: x (B, N) with W x = ``rhs`` from the
+    factor's LU and pivots."""
+    dev = rhs.device
+    with span('pyjac.kernels.prepare'):
+        B, N = rhs.shape
+        _check('rhs', rhs, (B, N), F64, dev)
+        _check('LU', LU, (B, N, N), F64, dev)
+        _check('piv', piv, (B, N), torch.int32, dev)
+        lib = load()
+        with span('pyjac.kernels.alloc'):
+            x = torch.empty((B, N), dtype=F64, device=dev)
+    _launch(lib.pyjac_lu_solve,
+            (_ptr(LU), _ptr(piv), _ptr(rhs), _ptr(x), N, B, _stream(dev)),
+            dev, 'lu_solve', 'LU solve kernel')
+    return x
+
+
 _OPS.impl('stage_a', _stage_a_op, 'CUDA')
 _OPS.impl('stage_b', _stage_b_op, 'CUDA')
 _OPS.impl('dense_fused', _dense_fused_op, 'CUDA')
+_OPS.impl('lu_factor', _lu_factor_op, 'CUDA')
+_OPS.impl('lu_solve', _lu_solve_op, 'CUDA')
 
 
 @torch.library.register_fake('pyjac_tpu_torch::stage_a', lib=_OPS)
@@ -783,3 +882,15 @@ def _(tables, dims, src, post):
 def _(tables, dims, y_t, P_t, plan=None):
     N, B = dims[0], y_t.shape[-1]
     return y_t.new_empty((N, N, B)), y_t.new_empty((N, B))
+
+
+@torch.library.register_fake('pyjac_tpu_torch::lu_factor', lib=_OPS)
+def _(J, s):
+    B, N = J.shape[0], J.shape[-1]
+    return (J.new_empty((B, N, N)), J.new_empty((B, N), dtype=torch.int32),
+            J.new_empty((B,), dtype=torch.bool))
+
+
+@torch.library.register_fake('pyjac_tpu_torch::lu_solve', lib=_OPS)
+def _(LU, piv, rhs):
+    return rhs.new_empty(rhs.shape)

@@ -69,7 +69,8 @@ def trace(log_dir: str):
 # the port's counts while a profiler records (:func:`count`):
 # ``integrate.state_slots``, the state rows the integrator's loop
 # computed; ``integrate.state_attempts``, the steps (accepted or
-# rejected) its states took
+# rejected) its states took; ``integrate.lu_kernel``, the factors the
+# LU kernel (csrc/batched_lu.cu) took
 counters: Dict[str, int] = {}
 
 _NULL = contextlib.nullcontext()

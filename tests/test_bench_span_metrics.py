@@ -1,6 +1,6 @@
 """The benchmark's readers of the port's spans and counters
 (``benchmarks/metrics/{dydt_ms_per_iter, lu_idle_ms_per_iter,
-active_slots_pct, entry_idle_ms_per_call.eval}.py`` and
+lu_span_ms_per_iter, active_slots_pct, entry_idle_ms_per_call.eval}.py`` and
 ``benchmarks/harness/spans.py``) on a hand-built trace: the profiler's
 events as ``harness/trace.py`` reads them, with known host spans,
 kernel intervals and device times, so that every idle sum and ratio is
@@ -96,6 +96,41 @@ def test_integrate_readers():
         == pytest.approx(0.005)
 
 
+def _lu_trace(library: bool):
+    """A factor and three solves over each of two iterations, their spans
+    holding device time: factor 900 + 600 us, solves 6 x 100 us.  Inside
+    each span the op it ran: the library's ``aten::linalg_*`` (parent)
+    or the port's ``pyjac_tpu_torch::lu_*`` (change), each holding its
+    span's device time; a nested span of the same name is its parent's
+    and counts once."""
+    host, t = [], 0
+    for factor_us in (900.0, 600.0):
+        for name, us in [('lu_factor', factor_us)] + [('lu_solve', 100.0)] * 3:
+            span = _ev('pyjac.integrate.' + name, t, t + 5, device_us=us)
+            op = ('aten::linalg_%s' % ('lu_factor_ex' if name == 'lu_factor'
+                                        else name) if library
+                  else 'pyjac_tpu_torch::' + name)
+            child = _ev(op, t + 1, t + 4, device_us=us)
+            child.cpu_parent = span
+            host += [span, child]
+            t += 6
+    inner = _ev('pyjac.integrate.lu_solve', 2, 3, device_us=50.0)
+    inner.cpu_parent = host[2]
+    return Trace(CALLS + host + [inner] + KERNELS +
+                 _drawn('pyjac.integrate.lu_factor'), 2)
+
+
+@pytest.mark.parametrize('library', [True, False], ids=['parent', 'change'])
+def test_lu_span_reader(library):
+    """``lu_span_ms_per_iter`` reads the device time under the LU spans,
+    2.1 ms over 3 iterations, whichever LU ran inside them;
+    ``lu_ms_per_iter`` reads only the library's ops."""
+    run = _run(_lu_trace(library))
+    assert _read('lu_span_ms_per_iter', run) == pytest.approx(0.7)
+    lu = _read('lu_ms_per_iter', run)
+    assert lu == pytest.approx(0.7) if library else lu is None
+
+
 def test_entry_idle_reader():
     run = _run(_eval_trace(), ())
     assert _read('entry_idle_ms_per_call.eval', run) == pytest.approx(0.015)
@@ -115,7 +150,8 @@ def test_active_slots_reader(monkeypatch):
 
 
 @pytest.mark.parametrize('name', ['dydt_ms_per_iter', 'lu_idle_ms_per_iter',
-                                  'entry_idle_ms_per_call.eval'])
+                                  'entry_idle_ms_per_call.eval',
+                                  'lu_span_ms_per_iter'])
 def test_readers_give_none_where_nothing_is_read(name):
     """No trace (an untraced run); a trace without the program's spans
     (a program without them, or a control); a trace with no device

@@ -18,7 +18,8 @@ from pyjac_tpu_torch.core.constants import RU
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
-from pyjac_tpu_torch.integrate import STATUS_SUCCESS, integrate
+from pyjac_tpu_torch.integrate import (STATUS_SUCCESS, integrate, lu_factor,
+                                       lu_solve)
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian,
                                               cols_dense_reference,
                                               cols_sparse_reference, finish,
@@ -67,7 +68,8 @@ def test_kernels_match_cpu_on_card(card):
     assert kernels.launches == {'stage_a': 1, 'stage_b': 1, 'stage_b_x': 0,
                                 'big_parts': 0, 'big_cols_sparse': 0,
                                 'big_cols_dense': 0, 'dense_fused': 0,
-                                'fused_f32': 0}
+                                'fused_f32': 0, 'lu_factor': 0,
+                                'lu_solve': 0}
     assert J.device == card and J.dtype == torch.float64
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -595,6 +597,168 @@ def test_integrate_dd_matches_xla_on_card(card, method):
     assert torch.equal(rd.steps, rx.steps)
     assert torch.equal(rd.rejected, rx.rejected)
     assert _floored(rd.y.cpu().numpy(), rx.y.cpu().numpy(), 1e-10) < 1e-9
+
+
+def _lu_inputs(card, B):
+    """K4's flagship Jt (N, N, B) on B tiled PaSR states, and per-state
+    step scales s = h gamma, log-uniform over [1e-11, 3e-5] (the
+    integrate cell's range)."""
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    idx = np.arange(B) % len(d['y'])
+    y_t = torch.as_tensor(d['y'][idx].T.copy(), device=card)
+    P_t = torch.as_tensor(d['P'][None, idx].copy(), device=card)
+    Jt, _ = DenseJacobian(p, device=card).call_tr(y_t, P_t)
+    s = 10.0 ** np.random.default_rng(17).uniform(-11, np.log10(3e-5), B)
+    return Jt, torch.as_tensor(s, device=card)
+
+
+def _library_lu(J, s):
+    return torch.linalg.lu_factor_ex(_iteration_matrix(J, s),
+                                     check_errors=False)
+
+
+def _iteration_matrix(J, s):
+    return torch.eye(J.shape[-1], dtype=J.dtype, device=J.device) - \
+        s[:, None, None] * J
+
+
+def _forward_error(x, W, rhs, ref):
+    """The largest error of each state's solve x over its largest |x|,
+    against the exact solution: ``ref`` (an f64 solve) after one step of
+    refinement with its residual in numpy's extended precision."""
+    Wl = W.cpu().numpy().astype(np.longdouble)
+    xl = ref.cpu().numpy().astype(np.longdouble)
+    r = rhs.cpu().numpy().astype(np.longdouble) - np.einsum('bij,bj->bi',
+                                                            Wl, xl)
+    dx = np.linalg.solve(W.cpu().numpy(), r.astype(np.float64)[..., None])
+    exact = (xl + dx[..., 0]).astype(np.float64)
+    xn = x.cpu().numpy()
+    return float((np.abs(xn - exact).max(-1) / np.abs(exact).max(-1)).max())
+
+
+@pytest.mark.parametrize('layout', ['dd', 'xla'])
+def test_lu_kernel_matches_library_on_card(card, layout):
+    """The LU kernels on W = I - s J from K4's flagship output at B =
+    4099 (a ragged last tile), J read where K4 leaves it ([column, row,
+    batch], ``dd``) or as a contiguous (B, N, N) copy (``xla``), against
+    ``torch.linalg.lu_factor_ex`` / ``lu_solve`` of the same W on the
+    card: the same pivots and ok, LU within 1e-12 of each state's largest
+    |LU|, and solves no farther from the exact solution than twice the
+    farther of the library's on the card and on the CPU (the plain
+    version), each over the state's largest |x|: at these step sizes W is
+    ill-conditioned, and the f64 solvers part ~1e-10 from one another;
+    one launch each; each state's factor bit-equal where it sits
+    elsewhere in its tile (the batch shifted by one state); the operators
+    under opcheck."""
+    Jt, s = _lu_inputs(card, 4099)
+    J = Jt.permute(2, 1, 0)
+    if layout == 'xla':
+        J = J.contiguous()
+    LUr, pivr, info = _library_lu(J, s)
+    rhs = torch.as_tensor(
+        np.random.default_rng(5).standard_normal((4099, J.shape[-1])),
+        device=card)
+    xr = torch.linalg.lu_solve(LUr, pivr, rhs[..., None])[..., 0]
+    kernels.reset_launches()
+    fac = lu_factor(J, s)
+    x = lu_solve(fac, rhs)
+    torch.cuda.synchronize(card)
+    assert (kernels.launches['lu_factor'], kernels.launches['lu_solve']) \
+        == (1, 1)
+    LU, piv, ok = fac
+    assert LU.shape == (4099, 53, 53) and piv.shape == (4099, 53)
+    assert torch.equal(piv, pivr)
+    assert torch.equal(ok, info == 0) and bool(ok.all())
+    assert float(((LU - LUr).abs().amax((1, 2)) /
+                  LUr.abs().amax((1, 2))).max()) < 1e-12
+    W = _iteration_matrix(J, s)
+    LUc, pivc, _ = torch.linalg.lu_factor_ex(W.cpu())
+    xc = torch.linalg.lu_solve(LUc, pivc, rhs.cpu()[..., None])[..., 0]
+    err, err_lib, err_cpu = (_forward_error(x, W, rhs, xr),
+                             _forward_error(xr, W, rhs, xr),
+                             _forward_error(xc, W, rhs, xr))
+    assert err <= 2.0 * max(err_lib, err_cpu), (err, err_lib, err_cpu)
+    assert all(torch.equal(a, b[1:])
+               for a, b in zip(lu_factor(J[1:], s[1:]), fac))
+    ops = torch.ops.pyjac_tpu_torch
+    torch.library.opcheck(ops.lu_factor.default, (J[:333], s[:333]))
+    torch.library.opcheck(ops.lu_solve.default,
+                          (LU[:333], piv[:333], rhs[:333]))
+
+
+def test_lu_kernel_flags_singular_and_nan_on_card(card):
+    """A W with a zero column gives ``ok`` False, as the library's info,
+    and solves that are not finite; a state with a NaN in J gives solves
+    that are not finite; every other state is flagged and solved as the
+    library does."""
+    Jt, s = _lu_inputs(card, 64)
+    J = Jt.permute(2, 1, 0).contiguous()
+    s[3] = 1.0
+    J[3, :, 5] = 0.0
+    J[3, 5, 5] = 1.0           # column 5 of W = I - J is zero
+    J[7, 2, 9] = float('nan')
+    fac = lu_factor(J, s)
+    rhs = torch.ones((64, J.shape[-1]), dtype=J.dtype, device=card)
+    x = lu_solve(fac, rhs)
+    LUr, pivr, info = _library_lu(J, s)
+    xr = torch.linalg.lu_solve(LUr, pivr, rhs[..., None])[..., 0]
+    rest = [b for b in range(64) if b != 7]
+    assert torch.equal(fac[2][rest], (info == 0)[rest])
+    assert not bool(fac[2][3]) and int(fac[2][rest].sum()) == 62
+    finite = torch.isfinite(x).all(-1)
+    assert not bool(finite[3]) and not bool(finite[7])
+    assert int(finite.sum()) == 62
+    good = [b for b in rest if b != 3]
+    W = _iteration_matrix(J[good], s[good])
+    assert _forward_error(x[good], W, rhs[good], xr[good]) <= \
+        2.0 * _forward_error(xr[good], W, rhs[good], xr[good])
+
+
+def test_lu_above_the_on_chip_limit_takes_the_library(card):
+    """An N past ``kernels.LU_MAX_N`` (one block's shared memory) takes
+    the library on the card, chosen by N: no LU launch, the library's
+    factors and solve exactly."""
+    N, B = kernels.LU_MAX_N + 1, 6
+    rng = np.random.default_rng(3)
+    J = torch.as_tensor(rng.standard_normal((B, N, N)), device=card)
+    s = torch.as_tensor(rng.uniform(0.01, 0.1, B), device=card)
+    rhs = torch.as_tensor(rng.standard_normal((B, N)), device=card)
+    kernels.reset_launches()
+    fac = lu_factor(J, s)
+    x = lu_solve(fac, rhs)
+    torch.cuda.synchronize(card)
+    assert (kernels.launches['lu_factor'], kernels.launches['lu_solve']) \
+        == (0, 0)
+    LUr, pivr, info = _library_lu(J, s)
+    assert torch.equal(fac[0], LUr) and torch.equal(fac[1], pivr)
+    assert torch.equal(fac[2], info == 0)
+    assert torch.equal(
+        x, torch.linalg.lu_solve(LUr, pivr, rhs[..., None])[..., 0])
+
+
+@pytest.mark.parametrize('jacobian', ['dd', 'xla'])
+@pytest.mark.parametrize('method,solves', [('ros23', 3), ('rodas3', 4)])
+def test_integrate_lu_launches_on_card(card, jacobian, method, solves):
+    """An integration on the card factors once an iteration and solves
+    once a stage with the LU kernels, and counts each factor under
+    ``integrate.lu_kernel`` while a profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyjac_tpu_torch import profiling
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:64], d['P'][:64]
+    kernels.reset_launches()
+    profiling.counters.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = integrate(p, y, P, 1e-5, jacobian=jacobian, method=method)
+    assert bool((res.status == STATUS_SUCCESS).all())
+    n = res.iterations
+    assert n > 0
+    assert kernels.launches['lu_factor'] == n
+    assert kernels.launches['lu_solve'] == solves * n
+    assert profiling.counters['integrate.lu_kernel'] == n
+    profiling.counters.clear()
 
 
 def test_dense_launcher_refuses_cpu_tensors(card):

@@ -213,22 +213,29 @@ def test_ignition_delay_matches_jax(tmp_path_factory):
 def test_lu_solve_matches_numpy():
     """The iteration-matrix factor and solve against numpy's LAPACK
     solve, a zero on the diagonal (pivoting), and a singular matrix,
-    whose solve is not finite and whose factor is flagged."""
+    whose solve is not finite and whose factor is flagged.  Each matrix
+    A goes in as W = I - s J with s = 1 and J = I - A (exact for the
+    2 x 2 matrices, within rounding for the others)."""
+    def factor(A):
+        A = torch.as_tensor(A)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype)
+        return lu_factor(eye - A, torch.ones(A.shape[0], dtype=A.dtype))
+
     rng = np.random.default_rng(7)
     for n in (3, 10, 53):
         A = rng.standard_normal((8, n, n)) + n * np.eye(n)
         b = rng.standard_normal((8, n))
-        fac = lu_factor(torch.as_tensor(A))
+        fac = factor(A)
         assert bool(fac[2].all())
         x = lu_solve(fac, torch.as_tensor(b)).numpy()
         x_ref = np.linalg.solve(A, b[..., None])[..., 0]
         assert np.max(np.abs(x - x_ref)) < 1e-12
     A = torch.tensor([[[0.0, 1.0], [1.0, 0.0]]], dtype=torch.float64)
-    x = lu_solve(lu_factor(A), torch.tensor([[2.0, 3.0]],
-                                            dtype=torch.float64))
+    x = lu_solve(factor(A), torch.tensor([[2.0, 3.0]],
+                                         dtype=torch.float64))
     np.testing.assert_allclose(x.numpy(), [[3.0, 2.0]], atol=1e-14)
     S = torch.tensor([[[1.0, 2.0], [2.0, 4.0]]], dtype=torch.float64)
-    fac = lu_factor(S)
+    fac = factor(S)
     assert not bool(fac[2].any())
     x = lu_solve(fac, torch.tensor([[1.0, 1.0]], dtype=torch.float64))
     assert not bool(torch.isfinite(x).all())
