@@ -27,6 +27,24 @@ from ..ops.jacobian import jacobian_and_dydt
 from ..ops.jacobian_dense import DenseJacobian
 from ..ops.jacobian_sparse import SparseJacobian
 
+# the share of a card's memory that one default chunk of
+# jacobian_dd_resident may take for its outputs, J and dy/dt: a pass holds
+# one chunk's outputs and K1's intermediates (up to 0.83 times the outputs,
+# at the flagship) at once beside the staged ensemble, so a quarter keeps a
+# chunk's whole footprint within half the card
+RESIDENT_OUTPUT_SHARE = 0.25
+
+
+def resident_chunk(N: int, n: int, memory=None) -> int:
+    """:meth:`BatchEvaluator.jacobian_dd_resident`'s default chunk of
+    ``n`` states of width ``N``: at most 131072, and on a card of
+    ``memory`` bytes no more states than keep the chunk's J and dy/dt,
+    (N^2 + N) 8 bytes a state, within :data:`RESIDENT_OUTPUT_SHARE` of
+    it (``memory`` None, the host, caps nothing more)."""
+    fit = n if memory is None else \
+        int(RESIDENT_OUTPUT_SHARE * memory) // ((N * N + N) * 8)
+    return max(1, min(131072, n, fit))
+
 
 class BatchEvaluator:
     """Chunked evaluation of dy/dt / Jacobian over huge state batches.
@@ -176,8 +194,9 @@ class BatchEvaluator:
         Returns ``(checksum, stats)`` with the JAX package's stats keys
         (``states``: the states evaluated, each once; ``compile_s``: the
         untimed first pass, which builds the kernels on first use) and
-        ``kernel``, the module that ran.  It runs on one device: a mesh
-        of several raises ``ValueError``."""
+        ``kernel``, the module that ran.  ``chunk_b`` 0 takes
+        :func:`resident_chunk`'s for the device.  It runs on one device:
+        a mesh of several raises ``ValueError``."""
         if self.mesh is not None and self.mesh.size > 1:
             raise ValueError('jacobian_dd_resident stages the ensemble on '
                              'one device; got a mesh of %d'
@@ -185,7 +204,10 @@ class BatchEvaluator:
         mod = self._dd_kernel()
         y, param = self._inputs(y, param)
         n, N = y.shape
-        chunk_b = int(chunk_b) if chunk_b > 0 else min(131072, n)
+        memory = torch.cuda.get_device_properties(self.device).total_memory \
+            if self.device.type == 'cuda' else None
+        chunk_b = int(chunk_b) if chunk_b > 0 else \
+            resident_chunk(N, n, memory)
         spans = [(s, min(n, s + chunk_b)) for s in range(0, n, chunk_b)]
         host_y = np.concatenate([y[s:e].T.ravel() for s, e in spans])
         host_P = np.ascontiguousarray(param)

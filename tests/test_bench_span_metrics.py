@@ -1,6 +1,7 @@
 """The benchmark's readers of the port's spans and counters
 (``benchmarks/metrics/{dydt_ms_per_iter, lu_idle_ms_per_iter,
-lu_span_ms_per_iter, active_slots_pct, entry_idle_ms_per_call.eval}.py`` and
+lu_span_ms_per_iter, active_slots_pct, entry_idle_ms_per_call.eval,
+stage_b_write_pct}.py`` and
 ``benchmarks/harness/spans.py``) on a hand-built trace: the profiler's
 events as ``harness/trace.py`` reads them, with known host spans,
 kernel intervals and device times, so that every idle sum and ratio is
@@ -147,6 +148,33 @@ def test_active_slots_reader(monkeypatch):
     assert _read('active_slots_pct', run) is None
     monkeypatch.delitem(sys.modules, 'pyjac_tpu_torch.profiling')
     assert _read('active_slots_pct', run) is None
+
+
+def _k2_run(n_species, batch, stage_b_us):
+    """Two calls, each with one ``pyjac_tpu_torch::stage_b`` record of
+    ``stage_b_us`` microseconds of device time."""
+    host = [_ev('pyjac_tpu_torch::stage_b', 40, 50, device_us=stage_b_us),
+            _ev('pyjac_tpu_torch::stage_b', 150, 160, device_us=stage_b_us)]
+    cell = SimpleNamespace(config={'n_species': n_species})
+    return Run(cell=cell, states_per_call=batch,
+               trace=Trace(CALLS + host + KERNELS, 2))
+
+
+@pytest.mark.parametrize('n_species,batch,stage_b_us,pct', [
+    # the J K2 writes a call, (N - 1) N 8 B bytes, at 3.35e12 B/s
+    (654, 4096, 7000.0, 100 * 653 * 654 * 8 * 4096 / 3.35e12 / 7e-3),
+    (53, 131072, 2960.0, 100 * 52 * 53 * 8 * 131072 / 3.35e12 / 2.96e-3),
+    (654, 4096, 653 * 654 * 8 * 4096 / 3.35e12 * 1e6, 100.0)])
+def test_stage_b_write_pct_reader(n_species, batch, stage_b_us, pct):
+    run = _k2_run(n_species, batch, stage_b_us)
+    assert _read('stage_b_write_pct', run) == pytest.approx(pct)
+
+
+def test_stage_b_write_pct_gives_none_where_k2_did_not_run():
+    assert _read('stage_b_write_pct', _run(None)) is None
+    run = _run(_eval_trace())
+    run.cell = SimpleNamespace(config={'n_species': 53})
+    assert _read('stage_b_write_pct', run) is None
 
 
 @pytest.mark.parametrize('name', ['dydt_ms_per_iter', 'lu_idle_ms_per_iter',

@@ -35,6 +35,7 @@ from pyjac_tpu_torch.core.pack import packed_from_arrays
 from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian
 from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian
+from pyjac_tpu_torch.parallel import batch
 from pyjac_tpu_torch.parallel.batch import BatchEvaluator
 
 torch.set_num_threads(1)
@@ -135,6 +136,29 @@ def test_resident_covers_every_state_once(mechs, name):
     assert (st['states'], st['chunk_b'], st['n_chunks']) == (40, 16, 3)
     assert st['staging_bytes'] == 40 * (p.n_species + 1) * 8
     assert len(st['pass_s']) == 2 and st['compute_s'] == min(st['pass_s'])
+
+
+H100_BYTES = 85520809984      # an H100 80GB HBM3's total_memory
+
+
+def test_resident_default_chunk_fits_the_device(mechs):
+    """``jacobian_dd_resident``'s default chunk: the flagship keeps its
+    131072 states on an H100 and the 654-species class takes no more
+    than keep J and dy/dt within the stated share of the card; on the
+    host nothing but 131072 caps it (here the whole 40 states)."""
+    assert batch.resident_chunk(53, 10 ** 6, H100_BYTES) == 131072
+    assert batch.resident_chunk(53, 4096, H100_BYTES) == 4096
+    n654 = batch.resident_chunk(654, 10 ** 6, H100_BYTES)
+    per_state = (654 * 654 + 654) * 8
+    assert n654 * per_state <= batch.RESIDENT_OUTPUT_SHARE * H100_BYTES \
+        < (n654 + 1) * per_state
+    assert batch.resident_chunk(654, 100, H100_BYTES) == 100
+    assert batch.resident_chunk(654, 10, per_state) == 1
+    assert batch.resident_chunk(654, 10 ** 6) == 131072
+    _, p, y, P = mechs['flagship']
+    _, st = BatchEvaluator(p, device='cpu').jacobian_dd_resident(
+        y, P, passes=1)
+    assert (st['chunk_b'], st['n_chunks']) == (40, 1)
 
 
 def test_refused_mechanism_drops_to_dense_as_jax(mechs):
