@@ -80,9 +80,14 @@ non-zero at once:
 11. the integrate path: the flagship PaSR states tiled to B = 32768
     through ``integrate(..., 1e-4, jacobian='dd', method='ros23')`` (one
     warm-up, best of 3 with CUDA events; every state must succeed, K4
-    and the LU factor launch once per loop iteration and the LU solve
-    three times), its ``torch.profiler`` split per iteration, K4 alone
-    beside its plain version and bound; 11e the LU kernels against the
+    and the LU factor launch once per loop iteration, the LU solve three
+    times and the dy/dt kernel twice), its ``torch.profiler`` split per
+    iteration, K4 alone beside its plain version and bound; 11f the dy/dt
+    kernel there (K4's f bit for bit on the loop's (B, N) states, its
+    f against the plain ``dydt``) beside the plain ``dydt``, K4 cut after
+    its phase 4 (``probes/dydt_kernel.cu``, built in the background from
+    phase 2: the yardstick of its q-only phases) and its bound; 11e the
+    LU kernels against the
     card library on W = I - s J from K4's output there (equal pivots and
     ok, LU, the solves' forward error; ``phase_lu``), each beside its
     plain version, the library call and its byte bound; then
@@ -1396,9 +1401,11 @@ def phase_dense_golden(mechs, device, card):
 
 def integrate_profile(fn, iters, card):
     """Device time per loop iteration of one integrate call ``fn``: K4 by
-    kernel name, the LU factor + solves and dy/dt by ``record_function``
-    ranges around the integrator's calls, the rest of the plain torch
-    arithmetic, and idle (the CUDA-event wall minus device busy)."""
+    kernel name, the LU factor + solves by ``record_function`` ranges
+    around the integrator's calls, dy/dt by the integrator's own
+    ``pyjac.integrate.dydt`` spans (the dy/dt kernel on the card), the
+    rest of the plain torch arithmetic, and idle (the CUDA-event wall
+    minus device busy)."""
     import importlib
 
     from torch.autograd import DeviceType
@@ -1412,10 +1419,9 @@ def integrate_profile(fn, iters, card):
                 return f(*a, **k)
         return g
 
-    saved = (integ.dydt_dispatch, integ.lu_factor, integ.lu_solve)
-    integ.dydt_dispatch = ranged('smoke.dydt', saved[0])
-    integ.lu_factor = ranged('smoke.lu_factor', saved[1])
-    integ.lu_solve = ranged('smoke.lu_solve', saved[2])
+    saved = (integ.lu_factor, integ.lu_solve)
+    integ.lu_factor = ranged('smoke.lu_factor', saved[0])
+    integ.lu_solve = ranged('smoke.lu_solve', saved[1])
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1426,10 +1432,10 @@ def integrate_profile(fn, iters, card):
             e.record()
             e.synchronize()
     finally:
-        integ.dydt_dispatch, integ.lu_factor, integ.lu_solve = saved
+        integ.lu_factor, integ.lu_solve = saved
     wall = s.elapsed_time(e)
     busy = k4 = 0.0
-    ranges = {'smoke.dydt': 0.0, 'smoke.lu_factor': 0.0,
+    ranges = {'pyjac.integrate.dydt': 0.0, 'smoke.lu_factor': 0.0,
               'smoke.lu_solve': 0.0}
     by_name = {}
     # host ranges (these and the port's own spans) are also drawn on the
@@ -1454,14 +1460,14 @@ def integrate_profile(fn, iters, card):
     n = float(iters)
     split = dict(K4=k4 / n, lu_factor=ranges['smoke.lu_factor'] / n,
                  lu_solve=ranges['smoke.lu_solve'] / n,
-                 dydt=ranges['smoke.dydt'] / n)
+                 dydt=ranges['pyjac.integrate.dydt'] / n)
     split['other'] = busy / n - sum(split.values())
     split['idle'] = (wall - busy) / n
     print('  integrate profile (torch.profiler, one call, %d iterations, %s): '
           'wall %.3f ms, device busy %.3f ms, idle share %.1f%%' % (
               iters, card, wall, busy, 100.0 * (1.0 - busy / wall)))
     print('  per iteration, device ms: K4 %.3f, LU factor %.3f, LU solves '
-          '%.3f, plain-torch dy/dt %.3f, other plain torch %.3f, idle %.3f'
+          '%.3f, dy/dt spans %.3f, other plain torch %.3f, idle %.3f'
           % (split['K4'], split['lu_factor'], split['lu_solve'],
              split['dydt'], split['other'], split['idle']))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -1587,9 +1593,55 @@ def phase_lu(Jt, card):
             'bounds': bounds}
 
 
-def phase_integrate(packed, device, sizes, card):
+def phase_dydt(packed, dj, y0, P0, cut_build, card):
+    """Phase 11f: the dy/dt kernel at the integrate cell's shape, on the
+    loop's (B, N) states ``y0`` (their (N, B) view) and the pressures
+    ``P0``: one launch, K4's f bit for bit (``dj``: the cell's
+    ``DenseJacobian``), its rows against the plain ``dydt`` as phase 9a
+    holds K4's f; then timed on those states and on (N, B) ones beside
+    the plain ``dydt``, K4 cut after its phase 4 and its bound.  Returns
+    {'ms', 'err', 'bound'}; ``err``: its largest |difference| from the
+    plain ``dydt``."""
+    from probes import dydt_kernel as probe
+    B = y0.shape[0]
+    y_t, P_t = y0.T.contiguous(), P0[None].contiguous()
+    fk = dj.call_tr(y_t, P_t)[1]
+    before = kernels.launches['dydt']
+    f = kernels.dydt(dj, y0.T, P_t)
+    torch.cuda.synchronize()
+    check(kernels.launches['dydt'] - before == 1, 'dy/dt kernel launches')
+    check(torch.equal(f, fk), "the dy/dt kernel's f differs from K4's")
+    fr = dydt(packed, 0.0, P0, y0).T
+    errs = {'f T': row_rel(f[:1], fr[:1]), 'f Y': state_rel(f[1:], fr[1:])}
+    for name, err in errs.items():
+        check(err <= TOL_NET, 'dy/dt kernel %s %.3e > %.0e' % (name, err,
+                                                              TOL_NET))
+    dll, ptx = probe.finish_build(cut_build)
+    ms = {'dydt': per_call_ms(lambda: kernels.dydt(dj, y0.T, P_t)),
+          'dydt_nb': per_call_ms(lambda: kernels.dydt(dj, y_t, P_t)),
+          'dydt_plain': best_ms(lambda: dydt(packed, 0.0, P0, y0)),
+          'k4_cut4': per_call_ms(lambda: probe.cut4_call(dll, dj, y_t, P_t))}
+    bound = bound_of(dj, B, 'dydt')
+    plan = kernels.tile_plan(dj, F64, B, torch.cuda.get_device_properties(
+        dj.device).multi_processor_count, kernel='dydt')
+    print('phase 11f dy/dt kernel: B=%d, equal to K4\'s f bit for bit; '
+          'against the plain dydt f T %.3e, f Y %.3e (<= %.0e); kernel %.4f '
+          'ms on (B, N) states, %.4f on (N, B), plain dydt %.3f ms, K4 cut '
+          'after phase 4 %.4f ms, bound %.4f ms (%s; %.4e operations) '
+          '(%s; %s)' % (B, errs['f T'], errs['f Y'], TOL_NET, ms['dydt'],
+                        ms['dydt_nb'], ms['dydt_plain'], ms['k4_cut4'],
+                        bound[0], bound[1], bound[2], plan_tag(plan), card))
+    for name, r in sorted(ptx.items()):
+        print('  ptxas (K4 cut at 4) %s: %s (registers, spilled bytes)' % (
+            name[:60], r))
+    return {'ms': ms, 'err': float((f - fr).abs().max()), 'bound': bound}
+
+
+def phase_integrate(packed, device, sizes, card, cut_build):
     """Phase 11: the integrator at full width (jacobian='dd': K4 once per
-    loop iteration), its profiler split, K4 and the LU kernels (11e)
+    loop iteration, the dy/dt kernel twice), its profiler split, K4, the
+    dy/dt kernel (11f; ``cut_build``: :func:`probes.dydt_kernel.
+    start_build`'s nvcc of K4 cut after phase 4) and the LU kernels (11e)
     alone at its shape, 'dd' against 'xla' on slices, and the
     fuse_gather=False flagship path timed."""
     res = {'ms': {}}
@@ -1622,6 +1674,9 @@ def phase_integrate(packed, device, sizes, card):
           counts['lu_solve'] == 12 * r.iterations,
           'LU launches %d / %d != 4 runs x %d iterations x 1 / 3' % (
               counts['lu_factor'], counts['lu_solve'], r.iterations))
+    check(counts['dydt'] == 8 * r.iterations,
+          'dy/dt kernel launches %d != 4 runs x %d iterations x 2' % (
+              counts['dydt'], r.iterations))
     res.update(counts_integrate=counts, wall=wall, iterations=r.iterations)
     res['split'] = integrate_profile(run, r.iterations, card)
 
@@ -1640,6 +1695,7 @@ def phase_integrate(packed, device, sizes, card):
               res['ms']['dense_fused'], res['ms']['dense_fused_plain'],
               res['bound'][0], res['bound'][1], ops, ops / F64_FLOP_S * 1e3,
               F64_FLOP_S, B, plan_tag(card_plan(dj, F64, B)), card))
+    res['dydt'] = phase_dydt(packed, dj, y0, P0, cut_build, card)
     res['lu'] = phase_lu(Jt, card)
     del dj, out, Jt
     torch.cuda.empty_cache()
@@ -2741,7 +2797,8 @@ def phase_examples(device, card):
     with its launch counters set to 0 just before and read just after.
     ``ignition_delay`` on ``IGN_ARGS``' grid (its stage Jacobian from K4,
     one launch per loop iteration, the LU kernels' factor once and solve
-    three times an iteration; no other kernel) against the same call
+    three times an iteration, the dy/dt kernel twice; no other kernel)
+    against the same call
     with ``--device cpu``: every state ignited on both (a probe found its
     delay: ``examples.ignition_delay.ignited``), and the delays within one
     bisection bracket of the CPU's (the two stage Jacobians round apart,
@@ -2772,9 +2829,10 @@ def phase_examples(device, card):
           'within t_end: %s (CPU %s)' % (out['tau'], ref['tau']))
     check(diff <= bracket, 'ignition_delay: card vs CPU %.3e s' % diff)
     check(ign['dense_fused'] > 0 and ign['lu_factor'] == ign['dense_fused']
-          and ign['lu_solve'] == 3 * ign['dense_fused'] and all(
+          and ign['lu_solve'] == 3 * ign['dense_fused'] and
+          ign['dydt'] == 2 * ign['dense_fused'] and all(
               v == 0 for k, v in ign.items()
-              if k not in ('dense_fused', 'lu_factor', 'lu_solve')),
+              if k not in ('dense_fused', 'lu_factor', 'lu_solve', 'dydt')),
           'ignition_delay launched %s' % ign)
 
     kernels.reset_launches()
@@ -2892,7 +2950,8 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
     integrator's LU kernels, which replace no TPU kernel: their rows
     (phase 11e) hold, as ``max_abs_err``, the factor's LU error and the
     solve's forward error, and no ``wide`` (phase 18 integrates
-    nothing)."""
+    nothing); and its dy/dt kernel, which replaces none either (phase
+    11f: ``max_abs_err`` against the plain ``dydt``, no library call)."""
     flag = {'flagship': main_res['counts'],
             'flagship_unfused': integ['counts_unfused'],
             'synth53': synth['counts'],
@@ -2967,6 +3026,16 @@ def kernel_rows(errs, main_res, synth, big, integ, f32, front, lib, msh,
             bound_ms=lu['bounds'][name][0], bound_by=lu['bounds'][name][1],
             library_ms=lu['ms'][name + '_lib'], launches_by_path=by_path,
             wide=None))
+    dy = integ['dydt']
+    by_path = other_paths('dydt',
+                          {'integrate': integ['counts_integrate']['dydt']})
+    rows.append(dict(
+        name='dydt', route='cuda', source='pyjac_tpu_torch/csrc/dydt.cu',
+        replaces='none (XLA fuses the plain dydt: pyjac_tpu/integrate.py)',
+        launches=by_path['integrate'], max_abs_err=dy['err'],
+        ms=dy['ms']['dydt'], plain_ms=dy['ms']['dydt_plain'],
+        bound_ms=dy['bound'][0], bound_by=dy['bound'][1], library_ms=None,
+        launches_by_path=by_path, wide=None))
     return rows
 
 
@@ -2986,6 +3055,9 @@ def main():
         if 'registers' in line or 'spill' in line:
             print('  ptxas: ' + line.strip())
     sass_dump = start_sass_dump(kernels.build_info['library'])
+    from probes import dydt_kernel
+    cut_build = dydt_kernel.start_build()
+    CHILDREN.append(cut_build)
 
     mech, packed = flagship()
     p_syn = packed_from_text(synthetic_mechanism(9, 24, seed=7))[1]
@@ -3061,7 +3133,7 @@ def main():
     seconds['12-13'] = time.perf_counter() - t0 - sum(seconds.values())
     integ = phase_integrate(packed, device, {
         'integrate': 32768, 'integrate_check': 4096, 'integrate_hot': 256,
-        'unfused': 131072}, card)
+        'unfused': 131072}, card, cut_build)
     seconds['11'] = time.perf_counter() - t0 - sum(seconds.values())
     phase_bench(device, card)
     seconds['14'] = time.perf_counter() - t0 - sum(seconds.values())

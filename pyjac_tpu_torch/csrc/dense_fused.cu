@@ -88,22 +88,9 @@
 
 #include <cstring>
 
-// matches the numpy table order of jacobian_dense.fused_tables (the
-// closure's jacobian_sparse.finish_tables, the column CSR's entries, the
-// orders of the reactions and of each column's rows with their CSR
-// ranges) after the K5 tables (jacobian_big.parts_tables)
-template <typename S>
-struct DenseTables {
-  PartsTables<S> p;
-  FinishTables<S> f;
-  const S* col_coef;
-  const int *col_src, *rxn_order, *col_order;
-};
-#define N_TABLES (N_PARTS_TABLES + N_FINISH_TABLES + 4)
-static_assert(sizeof(DenseTables<double>) == N_TABLES * sizeof(void*),
-              "DenseTables must be N_TABLES pointers");
-#define N_DIMS 11
-#define N_PLAN 4
+// the tables (DenseTables) and the counts N_TABLES, N_DIMS, N_PLAN, shared
+// with the dy/dt kernel (csrc/dydt.cu)
+#include "dense_tables.cuh"
 
 // K4's tile (state_tile_layout's rows, the role array with its Sf + Sp
 // slot roles) and, for phase 5, the temperature-row terms of G columns (G

@@ -358,8 +358,11 @@ __device__ __forceinline__ void store_roles(const ReactionRoles<S>& v,
 // arrays in registers (K1, K4, K3 and K5 for Sf = Sp = 2); SF = SP =
 // WIDE_SLOTS takes the counts of d and keeps no per-thread array (the
 // wide path: a side of more than ARRAY_SLOTS slots or a Chebyshev order
-// above ARRAY_CHEB), with the array path's results bit for bit.
-template <typename S, bool HAS_PM, int SF = 0, int SP = 0>
+// above ARRAY_CHEB), with the array path's results bit for bit.  Q_ONLY
+// = true (the dy/dt kernel, csrc/dydt.cu) writes no slot role: of the
+// six it returns the caller reads q alone, and the compiler drops the
+// rest, so q is computed by the same lines in the same order.
+template <typename S, bool HAS_PM, int SF = 0, int SP = 0, bool Q_ONLY = false>
 __device__ __forceinline__ ReactionRoles<S> reaction_parts(
     const PartsTables<S>& t, const PartsDims<S>& d, const S* __restrict__ st,
     long long B, long long b, int r, S* __restrict__ slots, long long oB,
@@ -592,19 +595,21 @@ __device__ __forceinline__ ReactionRoles<S> reaction_parts(
 
   const S pmrho = pm * rho;
   S dlf = S(0), dlr = S(0);
-  for (int s = 0; s < Sf; ++s) {
-    const S kd = kf * slot_dp<S, SF>(dpf, conc, B, b, Sf, rsp,
-                                     t.reac_nu + (size_t)r * Sf, d.has_frac,
-                                     s);
-    if (rsp[s] == N - 1) dlf = dlf + kd;
-    slots[((size_t)s * R + r) * oB + ob] = pmrho * kd;
-  }
-  for (int s = 0; s < Sp; ++s) {
-    const S kd = kr * slot_dp<S, SP>(dpr, conc, B, b, Sp, psp,
-                                     t.prod_nu + (size_t)r * Sp, d.has_frac,
-                                     s);
-    if (psp[s] == N - 1) dlr = dlr + kd;
-    slots[((size_t)(Sf + s) * R + r) * oB + ob] = pmrho * kd;
+  if constexpr (!Q_ONLY) {
+    for (int s = 0; s < Sf; ++s) {
+      const S kd = kf * slot_dp<S, SF>(dpf, conc, B, b, Sf, rsp,
+                                       t.reac_nu + (size_t)r * Sf, d.has_frac,
+                                       s);
+      if (rsp[s] == N - 1) dlf = dlf + kd;
+      slots[((size_t)s * R + r) * oB + ob] = pmrho * kd;
+    }
+    for (int s = 0; s < Sp; ++s) {
+      const S kd = kr * slot_dp<S, SP>(dpr, conc, B, b, Sp, psp,
+                                       t.prod_nu + (size_t)r * Sp, d.has_frac,
+                                       s);
+      if (psp[s] == N - 1) dlr = dlr + kd;
+      slots[((size_t)(Sf + s) * R + r) * oB + ob] = pmrho * kd;
+    }
   }
   return {q, dq_dT, c_u, -pm * rho * t.inv_mw[N - 1] * (dlf - dlr),
           psi * qnet, xi * qnet};
@@ -702,13 +707,23 @@ __device__ __forceinline__ StateScalars<S> state_phase(
 // reactions) with the four sums in registers, from the six per-reaction
 // rows rest (6 R, B) = [q; dq_dT; c_u; c_1; psi_q; xi_q]; cv = c_1 -
 // psi_q at_last + xi_q pd_last.  Writes omega, domega and the post rows
-// v_u, v_c.
-template <typename S, bool HAS_PM>
+// v_u, v_c.  Q_ONLY (the dy/dt kernel): rest holds the q row alone, and
+// only omega is summed and written, in the same order.
+template <typename S, bool HAS_PM, bool Q_ONLY = false>
 __device__ __forceinline__ void contract_phase(
     const FinishTables<S>& f, int has_spec, int N, int R,
     const S* __restrict__ rest, long long B, long long b, int w, int W,
     S* __restrict__ omega, S* __restrict__ domega, S* __restrict__ v_u,
     S* __restrict__ v_c) {
+  if constexpr (Q_ONLY) {
+    for (int n = w; n < N; n += W) {
+      S om = S(0);
+      for (int e = f.nut_ptr[n]; e < f.nut_ptr[n + 1]; ++e)
+        om += f.nut_val[e] * AT(rest, f.nut_row[e]);
+      AT(omega, n) = om;
+    }
+    return;
+  }
   for (int n = w; n < N; n += W) {
     S om = S(0), dom = S(0), vu = S(0), vc = S(0);
     for (int e = f.nut_ptr[n]; e < f.nut_ptr[n + 1]; ++e) {
@@ -741,7 +756,9 @@ __device__ __forceinline__ void contract_phase(
 // species' temperature_terms, summed in order, then temperature_row: K1
 // computes the terms over its block and sums them on one thread).  col0
 // and fout are written at row stride oB, state ob; everything else at
-// (B, b).
+// (B, b).  The dy/dt kernel's closure (F_ONLY) writes f alone:
+// closure_species its dY/dt row, temperature_term_f each species' term of
+// dT/dt, which its tile sums in order.
 template <typename S>
 struct ClosureSums {
   S sh, dsh;
@@ -762,7 +779,7 @@ __device__ __forceinline__ ClosureSums<S> closure_sums(
   return {sh, dsh};
 }
 
-template <typename S>
+template <typename S, bool F_ONLY = false>
 __device__ __forceinline__ void closure_species(
     const FinishTables<S>& f, int N, int n, const StateScalars<S>& s,
     const S* __restrict__ omega, const S* __restrict__ domega, long long B,
@@ -771,11 +788,24 @@ __device__ __forceinline__ void closure_species(
   const int J = N - 1;
   const S rho_inv = S(1) / s.rho;
   const S fk = AT(omega, n) * f.mw[n] * rho_inv;
+  if constexpr (F_ONLY) {
+    fout[(size_t)(1 + n) * oB + ob] = fk;
+    return;
+  }
   col0[(size_t)(1 + n) * oB + ob] =
       f.mw[n] * rho_inv * AT(domega, n) - fk * s.dlnrho_dT;
   fout[(size_t)(1 + n) * oB + ob] = fk;
   AT(post, 4 * N + n) = fk;                               // fkJ
   AT(post, 4 * N + J + n) = f.mw[n] * rho_inv;            // mr
+}
+
+// species n's term of dT/dt, temperature_terms' fT by the same operations
+// (h W / (rho sh), times omega), with no post row; denomT = rho sh
+template <typename S>
+__device__ __forceinline__ S temperature_term_f(
+    const FinishTables<S>& f, int n, S denomT, const S* __restrict__ hrow,
+    const S* __restrict__ omega, long long B, long long b) {
+  return AT(hrow, n) * f.mw[n] / denomT * AT(omega, n);
 }
 
 // species n's terms of the temperature row's three sums (fT, and s1, s2

@@ -3,7 +3,9 @@
 // on the SM.  The stage-A kernel K1 (csrc/sparse_stage_a.cu) and the dense
 // fused kernels K4 / K3 (csrc/dense_fused.cu) run the phases here, then
 // their own last phase: K1 stores its post rows, K4 / K3 compute the
-// Jacobian's columns.
+// Jacobian's columns.  The dy/dt kernel (csrc/dydt.cu) runs them with
+// F_ONLY: the same phases cut down to dy/dt, on a tile of its own
+// (dydt_tile_layout).
 //
 // The tile is batch-minor with stride TS (row r of state s at r * TS + s),
 // so the phases of kinetics.cuh run on it unchanged, called with (B, b) =
@@ -54,6 +56,33 @@ __host__ __device__ inline TileLayout state_tile_layout(int N, int R, int kr,
   return L;
 }
 
+// The dy/dt kernel's tile: y and P (N + 1), the state scalars (4), the
+// state/thermo rows (5 + 3N; after phase 2, omega, dT/dt's per-species
+// terms and the closure's sums), q (R), then cp, h and dcp (N each).  Of
+// the post rows it keeps cp alone, which phase 1 writes at post + 3N: so
+// `post` lies 3N rows before cp, over rows it never writes as post
+// rows.  ops/kernels.py `dydt_tile_rows` counts the same.
+__host__ __device__ inline TileLayout dydt_tile_layout(int N, int R) {
+  TileLayout L;
+  L.y = 0;
+  L.scal = N + 1;
+  L.st = L.scal + 4;
+  L.roles = L.st + 5 + 3 * N;
+  L.post = L.roles + R - 3 * N;
+  L.hrow = L.roles + R + N;
+  L.rows = L.hrow + 2 * N;
+  L.stage = L.rows;
+  L.G = 0;
+  return L;
+}
+
+// the dy/dt kernel's strides (row, state) of its states y (N, B) and of
+// its f (N, B), each of any strides; unused by K1, K4 and K3, whose y and
+// f are batch-minor
+struct StateStrides {
+  long long yr, yb, fr, fb;
+};
+
 // Where phase 2 writes what K1 emits per reaction: the slot roles, psi_q
 // times each third-body efficiency slot and xi_q (or 0) into the source
 // stack src (n_src, B) at state b0 + s (SRC = true); K4 / K3 keep the slot
@@ -79,13 +108,23 @@ struct SourceOut {
 // order, so the N-long chain of divisions is no group's alone).  col0
 // / fout (N rows at stride B) take the temperature column and dy/dt.
 // Stops after phase LAST, at a __syncthreads().
-template <typename S, bool HAS_PM, int SL, bool SRC, int LAST>
+//
+// F_ONLY (the dy/dt kernel, on dydt_tile_layout's tile): y and fout of
+// the strides io; phases 0-1 as they are; phase 2 each reaction's q alone
+// (reaction_parts<Q_ONLY>) into the q row; phase 3 omega alone; phase 4
+// dy/dt alone: each species' dY/dt row and its term of dT/dt at once (the
+// terms over the dead domega rows), then the terms summed in order per
+// state, as closure_temperature sums them, so f is K4's bit for bit.
+template <typename S, bool HAS_PM, int SL, bool SRC, int LAST,
+          bool F_ONLY = false>
 __device__ __forceinline__ void state_tile(
     const PartsTables<S>& p, const FinishTables<S>& f,
     const int* __restrict__ rxn_order, const PartsDims<S>& d, int has_spec,
     int TS, const TileLayout& L, long long b0, const S* __restrict__ y,
     const S* __restrict__ Pin, long long B, S* __restrict__ col0,
-    S* __restrict__ fout, S* __restrict__ tile, const SourceOut<S>& so) {
+    S* __restrict__ fout, S* __restrict__ tile, const SourceOut<S>& so,
+    const StateStrides& io = StateStrides{}) {
+  static_assert(!(SRC && F_ONLY), "K1's sources hold no dy/dt-only body");
   const int N = d.N, R = d.R, J = N - 1, conp = d.conp;
   const int k = d.Sf + d.Sp, kr = SRC ? 0 : k;
   const int tid = threadIdx.x;
@@ -120,11 +159,25 @@ __device__ __forceinline__ void state_tile(
   };
 
   // --- 0. the tile's y and P rows ------------------------------------------
-  for (int i = tid; i < (N + 1) * TS; i += TILE_THREADS) {
-    const int r = i / TS, si = i % TS;
-    if (si < live)
-      ty[(size_t)r * TS + si] =
-          r < N ? y[(size_t)r * B + b0 + si] : Pin[b0 + si];
+  if constexpr (F_ONLY) {
+    // y of any strides, read in the order of its addresses where a
+    // state's rows are adjacent (the integrator's (B, N) states)
+    const bool by_state = io.yr == 1;
+    for (int i = tid; i < N * TS; i += TILE_THREADS) {
+      const int r = by_state ? i % N : i / TS;
+      const int si = by_state ? i / N : i % TS;
+      if (si < live)
+        ty[(size_t)r * TS + si] = y[r * io.yr + (b0 + si) * io.yb];
+    }
+    for (int si = tid; si < live; si += TILE_THREADS)
+      ty[(size_t)N * TS + si] = Pin[b0 + si];
+  } else {
+    for (int i = tid; i < (N + 1) * TS; i += TILE_THREADS) {
+      const int r = i / TS, si = i % TS;
+      if (si < live)
+        ty[(size_t)r * TS + si] =
+            r < N ? y[(size_t)r * B + b0 + si] : Pin[b0 + si];
+    }
   }
   __syncthreads();
 
@@ -147,7 +200,11 @@ __device__ __forceinline__ void state_tile(
   if (on) {
     for (int i = g; i < R; i += W) {
       const int r = rxn_order[i];
-      if (SRC) {
+      if constexpr (F_ONLY) {
+        roles[(size_t)r * TS + s] =
+            reaction_parts<S, HAS_PM, SL, SL, true>(p, d, st, ts, s, r,
+                                                    nullptr, ts, s).q;
+      } else if (SRC) {
         const ReactionRoles<S> v = reaction_parts<S, HAS_PM, SL, SL>(
             p, d, st, ts, s, r, so.src, B, bs);
         store_roles(v, roles, r, R, ts, s, has_spec != 0);
@@ -173,9 +230,13 @@ __device__ __forceinline__ void state_tile(
   // (with a thread group to spare, its last one takes the closure's sums)
   const bool spare = W > N;
   if (on) {
-    contract_phase<S, HAS_PM>(f, has_spec, N, R, roles + (size_t)kr * R * TS,
-                              ts, s, g, W, omega, domega, post,
-                              post + (size_t)N * TS);
+    if constexpr (F_ONLY)
+      contract_phase<S, HAS_PM, true>(f, has_spec, N, R, roles, ts, s, g, W,
+                                      omega, domega, post, post);
+    else
+      contract_phase<S, HAS_PM>(f, has_spec, N, R, roles + (size_t)kr * R * TS,
+                                ts, s, g, W, omega, domega, post,
+                                post + (size_t)N * TS);
     if (spare && g == W - 1) closure_sums_here();
   }
   __syncthreads();
@@ -186,7 +247,29 @@ __device__ __forceinline__ void state_tile(
     if (on && g == 0) closure_sums_here();
     __syncthreads();
   }
-  if (SRC) {
+  if constexpr (F_ONLY) {
+    // dy/dt: each species' dY/dt row and its term of dT/dt at once (the
+    // terms over the dead domega rows), then the terms' sum in order
+    S* terms = domega;
+    const StateScalars<S> sc = scalars();
+    if (on) {
+      const S denomT = sc.rho * sums[s];
+      for (int n = g; n < N; n += W) {
+        terms[(size_t)n * TS + s] =
+            temperature_term_f(f, n, denomT, hrow, omega, ts, (long long)s);
+        if (n < J)
+          closure_species<S, true>(f, N, n, sc, omega, domega, ts,
+                                   (long long)s, post, col0, fout, io.fr,
+                                   bs * io.fb);
+      }
+    }
+    __syncthreads();
+    if (on && g == 0) {
+      S fT = S(0);
+      for (int n = 0; n < N; ++n) fT -= terms[(size_t)n * TS + s];
+      fout[bs * io.fb] = fT;
+    }
+  } else if (SRC) {
     // K1: every species' temperature-row terms at once, into the dead
     // role rows (stage), then their sums in order on one thread group
     S* terms = tile + (size_t)L.stage * TS;

@@ -20,15 +20,26 @@ forms W as it loads J; otherwise W is formed here and factored with
 The JAX package's ``gauss_solve`` (an elimination written because
 XLA:TPU could not compile an f64 LU) is not ported.
 
+The right-hand side f comes, on the card, from hand-written kernels for
+every mechanism ``DenseJacobian`` takes: with ``jacobian='dd'`` a step's
+f(y) is the f K4 returns beside J, and every other stage's f is one
+launch of the dy/dt kernel (``csrc/dydt.cu``, K4's phases cut down to f,
+its f equal to K4's bit for bit); with ``jacobian='xla'`` every f is the
+dy/dt kernel's.  Elsewhere (on the CPU, or a mechanism
+``DenseJacobian`` refuses under ``jacobian='xla'``) every f is the plain
+``ops/dydt.py``.
+
 While a profiler records, a call is one span ``pyjac.integrate`` holding
 one ``pyjac.integrate.iteration`` a loop iteration, and each iteration
-the spans ``pyjac.integrate.dydt`` (each dy/dt), ``.jacobian`` (the
+the spans ``pyjac.integrate.dydt`` (each dy/dt the loop computes on
+its own, K4's f aside), ``.jacobian`` (the
 stage Jacobian), ``.lu_factor`` (``W`` and its factor), ``.lu_solve``
 (each stage solve) and ``.control`` (the error norm, the step controller
 and the masked updates); ``profiling.counters`` gains the state rows the
 loop computed (``integrate.state_slots``), the steps its states took,
-accepted or rejected (``integrate.state_attempts``), and the factors the
-LU kernel took (``integrate.lu_kernel``).
+accepted or rejected (``integrate.state_attempts``), the factors the
+LU kernel took (``integrate.lu_kernel``) and the dy/dts the dy/dt
+kernel took (``integrate.dydt_kernel``).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch
 from .ops.common import as_f64, entry_device
 from .ops.dydt import dydt as dydt_dispatch
 from .ops.jacobian import eval_jacobian
+from .ops.jacobian_sparse import supports
 from .ops.kernels import lu_on_chip
 from .profiling import count, recording, span
 
@@ -133,22 +145,31 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
     param = torch.broadcast_to(as_f64(param, device), (B,))
     t_end = torch.broadcast_to(as_f64(t_end, device), (B,))
 
-    def f(y):
-        with span('pyjac.integrate.dydt'):
-            return dydt_dispatch(packed, 0.0, param, y, conp=conp)
-
-    if jacobian == 'dd':
+    # f by the dy/dt kernel: on the card, for the mechanisms K4 takes
+    kernel_f = y0.device.type == 'cuda' and supports(packed)
+    if jacobian == 'dd' or kernel_f:
+        from .ops import kernels
         from .ops.jacobian_dense import DenseJacobian
         dense = DenseJacobian(packed, conp=conp, device=device)
         p_row = param[None].contiguous()
 
+    def f(y):
+        with span('pyjac.integrate.dydt'):
+            if kernel_f:
+                count('integrate.dydt_kernel', 1)
+                # (N, B) views of the (B, N) states and of f: no copy
+                return kernels.dydt(dense, y.T, p_row).T
+            return dydt_dispatch(packed, 0.0, param, y, conp=conp)
+
+    if jacobian == 'dd':
         def jac(y):
-            Jt, _ = dense.call_tr(y.T.contiguous(), p_row)
-            # kernel layout (column, row, batch) -> (batch, row, column)
-            return Jt.permute(2, 1, 0)
+            Jt, fk = dense.call_tr(y.T.contiguous(), p_row)
+            # kernel layout (column, row, batch) -> (batch, row, column);
+            # K4's f is f(y) where the dy/dt kernel would give it
+            return Jt.permute(2, 1, 0), (fk.T if kernel_f else None)
     else:
         def jac(y):
-            return eval_jacobian(packed, 0.0, param, y, conp=conp)
+            return eval_jacobian(packed, 0.0, param, y, conp=conp), None
 
     if first_step is None:
         h = t_end * 1e-6
@@ -170,9 +191,10 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
             hs = torch.minimum(h, t_end - t)
             hs = torch.where(active, hs, 1.0)     # benign value on done rows
 
-            F0 = f(y)
             with span('pyjac.integrate.jacobian'):
-                J = jac(y)
+                J, F0 = jac(y)
+            if F0 is None:
+                F0 = f(y)
             with span('pyjac.integrate.lu_factor'):
                 fac = lu_factor(J, hs * gamma)
 

@@ -39,7 +39,10 @@ batched LU (``csrc/batched_lu.cu``) is registered likewise, as
 ``pyjac_tpu_torch::lu_factor`` and ``::lu_solve``: it takes every
 iteration matrix of width up to :data:`LU_MAX_N` on the card
 (:func:`lu_on_chip`), called by ``integrate.lu_factor`` /
-``lu_solve``.  Importing this module registers the operators.
+``lu_solve``.  So is the integrator's dy/dt kernel (``csrc/dydt.cu``),
+as ``pyjac_tpu_torch::dydt`` (:func:`dydt`: K4's tables and phases cut
+down to f, states of any strides).  Importing this module registers the
+operators.
 """
 
 from __future__ import annotations
@@ -60,9 +63,10 @@ from .common import F64, _tracing
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
            'big_cols_sparse.cu', 'big_cols_dense.cu', 'dense_fused.cu',
-           'batched_lu.cu')
+           'batched_lu.cu', 'dydt.cu')
 # device code the sources include (part of the build's hash)
-HEADERS = ('kinetics.cuh', 'state_tile.cuh', 'columns.cuh')
+HEADERS = ('kinetics.cuh', 'state_tile.cuh', 'columns.cuh',
+           'dense_tables.cuh')
 ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # -fmad=false: no multiply-add contraction, so each kernel operation
 # rounds like the plain version's separate torch ops (near equilibrium
@@ -73,7 +77,7 @@ NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
 # plain launch counters: one per kernel, bumped where it launches
 launches = {'stage_a': 0, 'stage_b': 0, 'stage_b_x': 0, 'big_parts': 0,
             'big_cols_sparse': 0, 'big_cols_dense': 0, 'dense_fused': 0,
-            'fused_f32': 0, 'lu_factor': 0, 'lu_solve': 0}
+            'fused_f32': 0, 'lu_factor': 0, 'lu_solve': 0, 'dydt': 0}
 
 # what the last build did: seconds, library path, nvcc's output
 build_info = {}
@@ -192,13 +196,18 @@ def load():
     lib.pyjac_lu_factor.restype = ci
     lib.pyjac_lu_solve.argtypes = [vp, vp, vp, vp, ci, cll, vp]
     lib.pyjac_lu_solve.restype = ci
+    lib.pyjac_dydt_tile_rows.argtypes = [vp]
+    lib.pyjac_dydt_tile_rows.restype = ci
+    lib.pyjac_dydt.argtypes = [vp, ci, vp, ci, cd, vp, cll, cll, vp, cll, vp,
+                               cll, cll, vp, vp, ci, vp]
+    lib.pyjac_dydt.restype = ci
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
     return lib
 
 
-def _check(name, x, shape, dtype, device):
+def _check(name, x, shape, dtype, device, contiguous=True):
     if not isinstance(x, torch.Tensor) or x.device.type != 'cuda':
         raise ValueError('%s: expected a CUDA tensor, got %s' % (
             name, x.device if isinstance(x, torch.Tensor) else type(x)))
@@ -209,7 +218,7 @@ def _check(name, x, shape, dtype, device):
     if tuple(x.shape) != tuple(shape):
         raise ValueError('%s: expected shape %s, got %s' % (
             name, tuple(shape), tuple(x.shape)))
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError('%s must be contiguous' % name)
 
 
@@ -373,7 +382,7 @@ def stage_a_args(tabs, dims, y_t, P_t, plan=None):
     cdims = (ctypes.c_int * 12)(*dims[:12])
     if plan is None:
         with span('pyjac.kernels.plan'):
-            plan = plan_ints(_plan(dims, True, F64, B, _n_sm(dev)))
+            plan = plan_ints(_plan(dims, 'stage_a', F64, B, _n_sm(dev)))
     cplan = _plan_arg(plan, lib.pyjac_stage_a_tile_rows(cdims), 'stage A')
     with span('pyjac.kernels.alloc'):
         out = {k: torch.empty((rows, B), dtype=F64, device=dev)
@@ -556,6 +565,12 @@ L2_SLICES = 40e6
 # a row's stores are whole 32 B sectors when a tile holds a multiple of
 # this
 SECTOR = 32
+# the most states a tile of the dy/dt kernel takes: at the flagship 16
+# states a tile (32 thread groups, each a half warp) ran in 0.439 ms
+# against 0.486 at 32, 0.505 at 24, 0.541 at 40 (the most shared memory
+# holds, in whole sectors) and 0.544 at 8 (B = 32768, PERF.md): a smaller
+# tile leaves L1 more of the SM, where the tables' loads wait
+DYDT_TILE = 16
 
 
 def dense_tile_rows(N: int, R: int, Sf: int, Sp: int,
@@ -588,13 +603,24 @@ def stage_a_tile_rows(N: int, R: int, has_spec: bool = True) -> int:
         2 * N + (3 * N if 3 * N > per_rxn else 0)
 
 
+def dydt_tile_rows(N: int, R: int) -> int:
+    """Rows of one state's tile in the dy/dt kernel (``dydt_tile_layout``
+    in ``csrc/state_tile.cuh``, which the launcher checks): y and P
+    (N + 1), the state scalars (4), the state/thermo rows (5 + 3N, later
+    also omega, dT/dt's per-species terms and the closure's sums), q (R),
+    cp, h and dcp (3N)."""
+    return (N + 1) + 4 + (5 + 3 * N) + R + 3 * N
+
+
 def tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
-              placement=None) -> dict:
+              placement=None, kernel=None) -> dict:
     """The launch plan of the tile kernel ``mod`` runs -- K1 for a
     ``SparseJacobian``, K4 for a ``DenseJacobian``, K3 for an
-    ``F32Jacobian`` -- on B states in ``dtype``, on a card of ``n_sm``
-    SMs.  A block keeps a tile of ``tile`` states' rows
-    (:func:`stage_a_tile_rows`, :func:`dense_tile_rows`) on the SM: in
+    ``F32Jacobian``; with ``kernel='dydt'`` the dy/dt kernel on a
+    ``DenseJacobian``'s tables -- on B states in ``dtype``, on a card of
+    ``n_sm`` SMs.  A block keeps a tile of ``tile`` states' rows
+    (:func:`stage_a_tile_rows`, :func:`dense_tile_rows`,
+    :func:`dydt_tile_rows`) on the SM: in
     dynamic shared memory (``placement`` 'shared', one block a tile)
     where one state's rows fit in :data:`SMEM_MAX`, the tile then as
     many states as fit, rounded down to whole 32 B sectors of the output
@@ -604,24 +630,31 @@ def tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
     the slices within :data:`L2_SLICES`).  K1 takes at most as many
     states as leave a spare thread group, one more than N (phase 3 then
     runs the closure's sums; on the card 8 flagship states a tile beat
-    12 by 5%: PERF.md).  ``tile`` / ``placement`` override the choice.
-    Returns {tile, placement, grid, rows, smem_bytes, scratch_elems}."""
+    12 by 5%: PERF.md), the dy/dt kernel at most :data:`DYDT_TILE`.
+    ``tile`` / ``placement`` override the choice.  Returns {tile, placement, grid, rows, smem_bytes, scratch_elems}."""
     from .jacobian_sparse import SparseJacobian
-    return _plan(_kinetics_dims(mod), isinstance(mod, SparseJacobian), dtype,
-                 B, n_sm, tile, placement)
+    if kernel is None:
+        kernel = ('stage_a' if isinstance(mod, SparseJacobian) else
+                  'dense_fused')
+    return _plan(_kinetics_dims(mod), kernel, dtype, B, n_sm, tile,
+                 placement)
 
 
-def _plan(dims, sparse: bool, dtype, B: int, n_sm: int, tile=None,
+def _plan(dims, kernel: str, dtype, B: int, n_sm: int, tile=None,
           placement=None) -> dict:
     """:func:`tile_plan` from the kinetics dims leading ``dims`` of K1
-    (``sparse``) or of K4 / K3: what the operators plan at run time."""
+    (``kernel`` 'stage_a'), of K4 / K3 ('dense_fused') or of the dy/dt
+    kernel ('dydt'): what the operators plan at run time."""
     itemsize = dtype.itemsize
-    if sparse:
+    most = TILE_THREADS
+    if kernel == 'stage_a':
         rows = stage_a_tile_rows(dims[0], dims[1], dims[10])
         most = max(1, TILE_THREADS // (dims[0] + 1))
+    elif kernel == 'dydt':
+        rows = dydt_tile_rows(dims[0], dims[1])
+        most = DYDT_TILE
     else:
         rows = dense_tile_rows(*dims[:4], dims[10])
-        most = TILE_THREADS
     per_state = rows * itemsize
     group = SECTOR // itemsize
     fit = min(SMEM_MAX // per_state, most)
@@ -724,16 +757,15 @@ def _launch_dense(tabs, dims, y_t, P_t, dtype, plan=None):
     return Jt, f
 
 
-def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
-    """Everything a launch of K4's kernel in ``dtype`` passes, checked,
-    for the tables and dims of :func:`dense_inputs` under ``plan``
-    (:func:`plan_ints`; default :func:`tile_plan`'s for the card): (the
-    library, the argument list, the outputs Jt and f it fills, the
-    scratch it uses: keep it until the launch)."""
-    from .rates import _LN_PA_RU
-    what = _DENSE_ENTRIES[dtype][2]
+def _dense_prologue(tabs, dims, y_t, P_t, dtype, kernel, what, plan,
+                    contiguous=True):
+    """The checks and plan a launch on K4's tables takes (K4 / K3,
+    ``kernel`` 'dense_fused', or the dy/dt kernel, 'dydt', whose states
+    may have any strides: not ``contiguous``): (the library, the table
+    pointers, the C dims, the plan (:func:`plan_ints`; default the
+    planner's for the card) and the plan as the C entry takes it)."""
     dev, N, B = y_t.device, dims[0], y_t.shape[-1]
-    _check('y_t', y_t, (N, B), dtype, dev)
+    _check('y_t', y_t, (N, B), dtype, dev, contiguous)
     _check('P_t', P_t, (1, B), dtype, dev)
     ptrs = table_ptrs(tabs, dtype, dev, what)
     lib = load()
@@ -744,8 +776,23 @@ def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
     cdims = (ctypes.c_int * len(dims))(*dims)
     if plan is None:
         with span('pyjac.kernels.plan'):
-            plan = plan_ints(_plan(dims, False, dtype, B, _n_sm(dev)))
-    cplan = _plan_arg(plan, lib.pyjac_dense_fused_tile_rows(cdims), what)
+            plan = plan_ints(_plan(dims, kernel, dtype, B, _n_sm(dev)))
+    rows = (lib.pyjac_dydt_tile_rows if kernel == 'dydt' else
+            lib.pyjac_dense_fused_tile_rows)(cdims)
+    return lib, ptrs, cdims, plan, _plan_arg(plan, rows, what)
+
+
+def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
+    """Everything a launch of K4's kernel in ``dtype`` passes, checked,
+    for the tables and dims of :func:`dense_inputs` under ``plan``
+    (:func:`plan_ints`; default :func:`tile_plan`'s for the card): (the
+    library, the argument list, the outputs Jt and f it fills, the
+    scratch it uses: keep it until the launch)."""
+    from .rates import _LN_PA_RU
+    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
+    lib, ptrs, cdims, plan, cplan = _dense_prologue(
+        tabs, dims, y_t, P_t, dtype, 'dense_fused', _DENSE_ENTRIES[dtype][2],
+        plan)
     with span('pyjac.kernels.alloc'):
         Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
         f = torch.empty((N, B), dtype=dtype, device=dev)
@@ -754,6 +801,19 @@ def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
             _ptr(P_t), B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4,
             _stream(dev)]
     return lib, args, Jt, f, scratch
+
+
+def dydt(mod, y_t, P_t, plan=None):
+    """Launch the dy/dt kernel (``csrc/dydt.cu``) for the tables of
+    ``mod`` (a ``DenseJacobian``: K4's) on (N, B) states ``y_t`` of any
+    strides and a (1, B) pressure/density row, through the operator
+    ``pyjac_tpu_torch::dydt``: returns f (N, B), laid out as ``y_t``
+    (``torch.empty_like``), equal to K4's f bit for bit.  ``plan``: a
+    :func:`tile_plan` with ``kernel='dydt'`` in place of the planner's
+    own choice."""
+    _on_card('y_t', y_t)
+    return torch.ops.pyjac_tpu_torch.dydt(*dense_inputs(mod, F64), y_t, P_t,
+                                          plan_ints(plan))
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +833,8 @@ _OPS.define('dense_fused(Tensor[] tables, int[] dims, Tensor y_t, '
             'Tensor P_t, int[]? plan=None) -> (Tensor, Tensor)')
 _OPS.define('lu_factor(Tensor J, Tensor s) -> (Tensor, Tensor, Tensor)')
 _OPS.define('lu_solve(Tensor LU, Tensor piv, Tensor rhs) -> Tensor')
+_OPS.define('dydt(Tensor[] tables, int[] dims, Tensor y_t, Tensor P_t, '
+            'int[]? plan=None) -> Tensor')
 
 
 def _stage_a_op(tables, dims, y_t, P_t, plan=None):
@@ -859,11 +921,32 @@ def _lu_solve_op(LU, piv, rhs):
     return x
 
 
+def _dydt_op(tables, dims, y_t, P_t, plan=None):
+    """The dy/dt kernel, counted: f (N, B) from :func:`dense_inputs`'
+    tables and dims, laid out as ``y_t``."""
+    from .rates import _LN_PA_RU
+    dev, B = y_t.device, y_t.shape[-1]
+    with span('pyjac.kernels.prepare'):
+        lib, ptrs, cdims, plan, cplan = _dense_prologue(
+            tables, dims, y_t, P_t, F64, 'dydt', 'dy/dt kernel', plan,
+            contiguous=False)
+        with span('pyjac.kernels.alloc'):
+            f = torch.empty_like(y_t)
+            scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
+    _launch(lib.pyjac_dydt,
+            (ptrs, len(tables), cdims, len(dims), _LN_PA_RU, _ptr(y_t),
+             *y_t.stride(), _ptr(P_t), B, _ptr(f), *f.stride(),
+             _ptr(scratch), cplan, 4, _stream(dev)),
+            dev, 'dydt', 'dy/dt kernel')
+    return f
+
+
 _OPS.impl('stage_a', _stage_a_op, 'CUDA')
 _OPS.impl('stage_b', _stage_b_op, 'CUDA')
 _OPS.impl('dense_fused', _dense_fused_op, 'CUDA')
 _OPS.impl('lu_factor', _lu_factor_op, 'CUDA')
 _OPS.impl('lu_solve', _lu_solve_op, 'CUDA')
+_OPS.impl('dydt', _dydt_op, 'CUDA')
 
 
 @torch.library.register_fake('pyjac_tpu_torch::stage_a', lib=_OPS)
@@ -894,3 +977,8 @@ def _(J, s):
 @torch.library.register_fake('pyjac_tpu_torch::lu_solve', lib=_OPS)
 def _(LU, piv, rhs):
     return rhs.new_empty(rhs.shape)
+
+
+@torch.library.register_fake('pyjac_tpu_torch::dydt', lib=_OPS)
+def _(tables, dims, y_t, P_t, plan=None):
+    return torch.empty_like(y_t)

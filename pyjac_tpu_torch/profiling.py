@@ -70,7 +70,8 @@ def trace(log_dir: str):
 # ``integrate.state_slots``, the state rows the integrator's loop
 # computed; ``integrate.state_attempts``, the steps (accepted or
 # rejected) its states took; ``integrate.lu_kernel``, the factors the
-# LU kernel (csrc/batched_lu.cu) took
+# LU kernel (csrc/batched_lu.cu) took; ``integrate.dydt_kernel``, the
+# dy/dts the dy/dt kernel (csrc/dydt.cu) took
 counters: Dict[str, int] = {}
 
 _NULL = contextlib.nullcontext()
@@ -223,6 +224,25 @@ def _tables(mod, prefixes) -> list:
     return [t for k, t in mod._buffers.items() if k.startswith(prefixes)]
 
 
+def _transcendental_calls(mod) -> float:
+    """The exp / log / pow calls a state's reactions make in K4 / K3 and
+    the dy/dt kernel (``mod``: a ``DenseJacobian`` or an
+    ``F32Jacobian``): kf; Kc's exp when reversible; the low- or
+    high-pressure rate and log10 Pr under falloff; Troe's 4 (5 with T2);
+    SRI's 7 (2 exp, 2 pow at 2 each, a log); PLOG's and Chebyshev's 2; 4
+    a slot with fractional nu."""
+    fl = mod.kp_flags.cpu().numpy()
+    plog = (mod.kp_plog_pos >= 0).cpu().numpy()
+    cheb = (mod.kp_cheb_pos >= 0).cpu().numpy()
+    p = mod.packed
+    calls = (1 + (fl & 1 != 0) + 2 * (fl & (4 | 8) != 0) +
+             (fl & 16 != 0) * (4 + (fl & 64 != 0)) + 7 * (fl & 32 != 0) +
+             2 * plog + 2 * cheb).sum()
+    if p.has_frac_nu:
+        calls += 4 * mod.R * (p.reac_sp.shape[1] + p.prod_sp.shape[1])
+    return float(calls)
+
+
 def dense_ops(mod, B: int) -> float:
     """The operations K4 / K3 (``mod``: a ``DenseJacobian`` or an
     ``F32Jacobian``) needs for B states, counted from its tables: per
@@ -235,20 +255,31 @@ def dense_ops(mod, B: int) -> float:
     nu_net entry: four sums of products), the closure (12 per species),
     the column operand's products (2 per CSR entry) and ``_post_col`` (8
     per J entry)."""
-    fl = mod.kp_flags.cpu().numpy()
-    plog = (mod.kp_plog_pos >= 0).cpu().numpy()
-    cheb = (mod.kp_cheb_pos >= 0).cpu().numpy()
     p = mod.packed
     N, R, J = mod.N, mod.R, mod.N - 1
-    calls = (1 + (fl & 1 != 0) + 2 * (fl & (4 | 8) != 0) +
-             (fl & 16 != 0) * (4 + (fl & 64 != 0)) + 7 * (fl & 32 != 0) +
-             2 * plog + 2 * cheb).sum()
-    if p.has_frac_nu:
-        calls += 4 * R * (p.reac_sp.shape[1] + p.prod_sp.shape[1])
     nnz = int((np.asarray(p.nu_net) != 0).sum())
-    per_state = (TRANSCENDENTAL_OPS * (1 + float(calls)) + 50.0 * N +
-                 40.0 * R + 4.0 * int(mod.kp_nu_ptr[-1]) + 8.0 * nnz +
-                 12.0 * N + 2.0 * mod.kf_col_coef.numel() + 8.0 * J * N)
+    per_state = (TRANSCENDENTAL_OPS * (1 + _transcendental_calls(mod)) +
+                 50.0 * N + 40.0 * R + 4.0 * int(mod.kp_nu_ptr[-1]) +
+                 8.0 * nnz + 12.0 * N + 2.0 * mod.kf_col_coef.numel() +
+                 8.0 * J * N)
+    return per_state * B
+
+
+def dydt_ops(mod, B: int) -> float:
+    """The operations the dy/dt kernel (``csrc/dydt.cu``) needs for B
+    states on the tables of ``mod`` (a ``DenseJacobian``), counted as
+    :func:`dense_ops` counts K4's, less what f does not need: per state
+    the thermo (ln T, 50 per species), per reaction 20 (the rate
+    constants, the concentration products, the pressure modification and
+    q), 2 per entry of its Kc sum and its transcendental calls, the
+    contraction (2 per nu_net entry: one sum of products) and the closure
+    (6 per species)."""
+    p = mod.packed
+    N, R = mod.N, mod.R
+    nnz = int((np.asarray(p.nu_net) != 0).sum())
+    per_state = (TRANSCENDENTAL_OPS * (1 + _transcendental_calls(mod)) +
+                 50.0 * N + 20.0 * R + 2.0 * int(mod.kp_nu_ptr[-1]) +
+                 2.0 * nnz + 6.0 * N)
     return per_state * B
 
 
@@ -285,7 +316,9 @@ def roofline(mod, B: int) -> Dict[str, dict]:
       then K2 ``stage_b`` (``fuse_gather``) or K2x ``stage_b_x`` (the
       gathered operand, J x Rmax rows);
     * ``DenseJacobian``: K4 ``dense_fused`` (states, tables, J and f;
-      :func:`dense_ops` at :data:`F64_FLOP_S`); ``F32Jacobian``: K3
+      :func:`dense_ops` at :data:`F64_FLOP_S`), and the dy/dt kernel
+      ``dydt`` on its tables (states, the tables K4's phases 0-4 read,
+      f; :func:`dydt_ops`); ``F32Jacobian``: K3
       ``fused_f32``, the same in float32 at :data:`F32_FLOP_S`;
     * ``BigJacobian``: K5 ``big_parts`` (the pre-stage rows, ``kp_``,
       the role array), then K6 ``big_cols_sparse`` or K7
@@ -321,8 +354,15 @@ def roofline(mod, B: int) -> Dict[str, dict]:
         item = 4 if f32 else 8
         moved = item * (N + 1 + N * N + N) * B + _nbytes(
             *_tables(mod, ('kp_', 'kf_')))
-        return {'fused_f32' if f32 else 'dense_fused': bound(
+        rows = {'fused_f32' if f32 else 'dense_fused': bound(
             moved, dense_ops(mod, B), F32_FLOP_S if f32 else F64_FLOP_S)}
+        if not f32:
+            read = [t for k, t in mod._buffers.items()
+                    if k.startswith(('kp_', 'kf_')) and k not in (
+                        'kf_col_coef', 'kf_col_src', 'kf_col_order')]
+            rows['dydt'] = bound(8 * (2 * N + 1) * B + _nbytes(*read),
+                                 dydt_ops(mod, B))
+        return rows
     R = mod.R
     rows = {'big_parts': bound(
         8 * ((5 + 3 * N) + mod.n_roles * R) * B +

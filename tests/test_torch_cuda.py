@@ -18,6 +18,7 @@ from pyjac_tpu_torch.core.constants import RU
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
+from pyjac_tpu_torch.ops.dydt import dydt
 from pyjac_tpu_torch.integrate import (STATUS_SUCCESS, integrate, lu_factor,
                                        lu_solve)
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian,
@@ -33,7 +34,8 @@ from pyjac_tpu_torch.ops.jacobian_sparse import (SparseJacobian, post_rows,
 from pyjac_tpu_torch.testers.synthetic import (flagship, packed_from_text,
                                                plausible_mechanism,
                                                random_states,
-                                               synthetic_mechanism)
+                                               synthetic_mechanism,
+                                               wide_mechanism)
 
 torch.set_num_threads(1)
 
@@ -69,7 +71,7 @@ def test_kernels_match_cpu_on_card(card):
                                 'big_parts': 0, 'big_cols_sparse': 0,
                                 'big_cols_dense': 0, 'dense_fused': 0,
                                 'fused_f32': 0, 'lu_factor': 0,
-                                'lu_solve': 0}
+                                'lu_solve': 0, 'dydt': 0}
     assert J.device == card and J.dtype == torch.float64
     assert _floored(J.cpu().numpy(), J0.numpy(), 1e-10) < 1e-9
     f, f0 = f.cpu().numpy(), f0.numpy()
@@ -759,6 +761,169 @@ def test_integrate_lu_launches_on_card(card, jacobian, method, solves):
     assert kernels.launches['lu_solve'] == solves * n
     assert profiling.counters['integrate.lu_kernel'] == n
     profiling.counters.clear()
+
+
+# ---------------------------------------------------------------------------
+# the dy/dt kernel (csrc/dydt.cu) and the integrator's f
+# ---------------------------------------------------------------------------
+
+# the mechanisms the dy/dt kernel is held at beside the flagship: USC-II's
+# class, the all-features synth at the flagship's width (PLOG, Chebyshev,
+# SRI, chemically activated, species-specific pdep, fractional nu) and
+# the wide path's mechanism
+DYDT_MECHS = {'usc': lambda: plausible_mechanism(111, 784, seed=5),
+              'synth53': lambda: synthetic_mechanism(53, 326, seed=7),
+              'wide': wide_mechanism}
+
+
+def _dydt_case(name, B, conp, card):
+    """(packed, y (B, N), param (B,)) on the card: the flagship's PaSR
+    states (tiled to B), else the mechanism's ``random_states(seed=3)``;
+    param is pressure (CONP) or each state's density (CONV)."""
+    if name == 'flagship':
+        _, p = flagship()
+        d = np.load(DATA / 'flagship_states.npz')
+        reps = -(-B // len(d['y']))
+        y, P = np.tile(d['y'], (reps, 1))[:B], np.tile(d['P'], reps)[:B]
+    else:
+        _, p = packed_from_text(DYDT_MECHS[name]())
+        y, _, P = random_states(p.mech, B, seed=3)
+    if not conp:
+        P = _density(p, y, P)
+    return (p, torch.as_tensor(y, device=card),
+            torch.as_tensor(np.asarray(P), device=card))
+
+
+@pytest.mark.parametrize('B', [1, 333, 32768])
+@pytest.mark.parametrize('conp', [True, False], ids=['conp', 'conv'])
+@pytest.mark.parametrize('name', ['flagship', 'usc', 'synth53', 'wide'])
+def test_dydt_kernel_is_k4_f_on_card(card, name, conp, B):
+    """The dy/dt kernel launches once a call and gives K4's f bit for
+    bit, on the (N, B) states K4 takes and on the transposed view of
+    (B, N) states (the integrator's), its f laid out as its input; and
+    it is within the tolerance K4's f is held to (norm-relative per
+    state < 1e-8) of the plain ``dydt``."""
+    p, y, P = _dydt_case(name, B, conp, card)
+    dj = DenseJacobian(p, conp=conp, device=card)
+    y_t, P_t = y.T.contiguous(), P[None].contiguous()
+    _, fk = dj.call_tr(y_t, P_t)
+    kernels.reset_launches()
+    f = kernels.dydt(dj, y_t, P_t)
+    fv = kernels.dydt(dj, y.T, P_t)
+    torch.cuda.synchronize(card)
+    assert kernels.launches['dydt'] == 2
+    assert f.stride() == y_t.stride() and fv.stride() == y.T.stride()
+    assert torch.equal(f, fk) and torch.equal(fv, fk)
+    fr = dydt(p, 0.0, P, y, conp=conp)
+    err = (fv.T - fr).abs().amax(1) / fr.abs().amax(1)
+    assert float(err.max()) < 1e-8
+
+
+@pytest.mark.parametrize('placement', ['shared', 'global'])
+@pytest.mark.parametrize('conp', [True, False], ids=['conp', 'conv'])
+def test_dydt_kernel_placements_on_card(card, placement, conp):
+    """The dy/dt kernel with its tiles in shared memory and in global
+    slices, on 1001 flagship states (the last tile ragged), gives the
+    planner's own launch and K4's f bit for bit: a state's arithmetic
+    does not depend on its tile."""
+    p, y, P = _dydt_case('flagship', 1001, conp, card)
+    dj = DenseJacobian(p, conp=conp, device=card)
+    plan = kernels.tile_plan(dj, torch.float64, 1001, _n_sm(card),
+                             placement=placement, kernel='dydt')
+    assert plan['placement'] == placement and 1001 % plan['tile']
+    P_t = P[None].contiguous()
+    f = kernels.dydt(dj, y.T, P_t, plan=plan)
+    assert torch.equal(f, kernels.dydt(dj, y.T, P_t))
+    assert torch.equal(f.T, dj.call_tr(y.T.contiguous(), P_t)[1].T)
+
+
+def test_dydt_kernel_654_class_on_card(card):
+    """The 654-species class: the dy/dt kernel keeps 3 states a tile in
+    shared memory where K4 needs global slices, and its f is K4's bit
+    for bit."""
+    _, p = packed_from_text(plausible_mechanism(654, 2716, seed=5))
+    y, _, P = random_states(p.mech, 5, seed=3)
+    y_t = torch.as_tensor(y.T.copy(), device=card)
+    P_t = torch.as_tensor(P[None].copy(), device=card)
+    dj = DenseJacobian(p, device=card)
+    plan = kernels.tile_plan(dj, torch.float64, 5, kernel='dydt')
+    assert (plan['tile'], plan['placement']) == (3, 'shared')
+    assert kernels.tile_plan(dj, torch.float64, 5)['placement'] == 'global'
+    assert torch.equal(kernels.dydt(dj, y_t, P_t), dj.call_tr(y_t, P_t)[1])
+
+
+def test_dydt_operator_opcheck_on_card(card):
+    """``pyjac_tpu_torch::dydt`` under ``torch.library.opcheck`` on the
+    card (its launch beside its fake implementation: schema, shapes,
+    dtypes, strides, dynamic batch) on the 9/24 all-features synth, a
+    ragged B, with (N, B) states and with the transposed view of (B, N)
+    states."""
+    mech, p = packed_from_text(synthetic_mechanism(9, 24, seed=7))
+    y, _, P = random_states(mech, 333, seed=3)
+    y = torch.as_tensor(y, device=card)
+    P_t = torch.as_tensor(P[None].copy(), device=card)
+    dj = DenseJacobian(p, device=card)
+    for y_t in (y.T.contiguous(), y.T):
+        torch.library.opcheck(torch.ops.pyjac_tpu_torch.dydt.default,
+                              (*kernels.dense_inputs(dj, torch.float64),
+                               y_t, P_t))
+
+
+@pytest.mark.parametrize('method', ['ros23', 'rodas3'])
+@pytest.mark.parametrize('jacobian,per_iteration', [('dd', 2), ('xla', 3)])
+def test_integrate_dydt_launches_on_card(card, jacobian, per_iteration,
+                                         method):
+    """On the card the integrator's f comes from kernels: with
+    ``jacobian='dd'`` a step's f(y) is K4's and its other stages' the
+    dy/dt kernel's (2 launches an iteration); with ``'xla'`` every f is
+    the dy/dt kernel's (3).  ``integrate.dydt_kernel`` counts each while
+    a profiler records, and every dy/dt span holds the kernel alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pyjac_tpu_torch import profiling
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'][:64], d['P'][:64]
+    kernels.reset_launches()
+    profiling.counters.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = integrate(p, y, P, 1e-5, jacobian=jacobian, method=method)
+        torch.cuda.synchronize(card)
+    assert bool((res.status == STATUS_SUCCESS).all())
+    n = res.iterations
+    assert n > 0
+    assert kernels.launches['dydt'] == per_iteration * n
+    assert profiling.counters['integrate.dydt_kernel'] == per_iteration * n
+    assert kernels.launches['dense_fused'] == (n if jacobian == 'dd' else 0)
+    profiling.counters.clear()
+    spans = [e for e in prof.events()
+             if e.name == 'pyjac.integrate.dydt' and
+             e.device_type == DeviceType.CPU]
+    assert len(spans) == per_iteration * n
+
+    def kernels_under(e):
+        return [k.name for k in e.kernels] + [
+            k for c in e.cpu_children for k in kernels_under(c)]
+
+    for e in spans:
+        names = kernels_under(e)
+        assert len(names) == 1 and 'dydt_kernel' in names[0], names
+
+
+def test_integrate_refused_mechanism_keeps_the_plain_f_on_card(card):
+    """A mechanism ``DenseJacobian`` refuses (a sign-flipping PLOG table)
+    integrates under ``jacobian='xla'`` on the card with the plain f: no
+    dy/dt kernel launches."""
+    _, p = packed_from_text(synthetic_mechanism(9, 24, seed=7))
+    sign = np.array(p.plog_sign)
+    sign[0, 0] = -1.0
+    bad = dataclasses.replace(p, plog_sign=sign)
+    y, _, P = random_states(p.mech, 8, seed=3)
+    kernels.reset_launches()
+    res = integrate(bad, y, P, 1e-7, jacobian='xla')
+    assert res.iterations > 0
+    assert kernels.launches['dydt'] == 0
 
 
 def test_dense_launcher_refuses_cpu_tensors(card):

@@ -226,6 +226,18 @@ def test_launcher_refuses_cpu_tensors(tmp_path_factory):
     assert kernels.launches == before and kernels._lib is None
 
 
+def test_dydt_launcher_refuses_cpu_tensors(tmp_path_factory):
+    """No fallback either: the dy/dt kernel's launcher given CPU tensors
+    raises, builds nothing and counts no launch."""
+    _, _, p = _mech(tmp_path_factory, 'small')
+    dj = DenseJacobian(p, device='cpu')
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.dydt(dj, torch.zeros((dj.N, 4), dtype=torch.float64),
+                     torch.ones((1, 4), dtype=torch.float64))
+    assert kernels.launches == before and kernels._lib is None
+
+
 # ---------------------------------------------------------------------------
 # K4's tile planner (kernels.tile_plan): what the card's launch asks
 # for, computed on the host
@@ -276,6 +288,54 @@ def test_tile_plan(name, tile, placement):
         assert plan['grid'] == 132
         assert plan['scratch_elems'] == plan['grid'] * tile * rows
         assert plan['scratch_elems'] * 8 <= kernels.L2_SLICES
+
+
+def _dydt_layout(N, R):
+    """``dydt_tile_layout`` of ``csrc/state_tile.cuh``, field by field:
+    {row block: (first row, rows)}."""
+    y, n_y = 0, N + 1
+    scal = y + n_y
+    st = scal + 4
+    q = st + 5 + 3 * N
+    cp = q + R
+    h = cp + N
+    return {'y': (y, n_y), 'scal': (scal, 4), 'st': (st, 5 + 3 * N),
+            'q': (q, R), 'cp': (cp, N), 'h': (h, N), 'dcp': (h + N, N)}
+
+
+@pytest.mark.parametrize('name, tile, fit', [('flagship', 16, 41),
+                                             ('usc', 16, 18), ('654', 3, 3)])
+def test_dydt_tile_plan(name, tile, fit):
+    """The dy/dt kernel's tile: its rows a state (``dydt_tile_rows``,
+    the C layout mirrored here: y and P, the state scalars, the
+    state/thermo rows, which later hold omega, dT/dt's N terms and the
+    closure's 2 sums, q, then cp, h and dcp) and the planner's states a
+    tile, as many as fit one block's shared memory up to
+    ``DYDT_TILE`` (16), rounded down to whole 32 B sectors where a
+    sector's states fit: 16 flagship states of the 41 that fit (K4: 8),
+    16 at USC-II (K4: 3), 3 at the 654 class (K4: one, in a global
+    slice)."""
+    dj = DenseJacobian(_plan_packed(name), device='cpu')
+    N, R = dj.N, dj.R
+    L = _dydt_layout(N, R)
+    blocks = sorted(L.values())
+    assert all(a + n == b for (a, n), (b, _) in zip(blocks, blocks[1:]))
+    assert L['st'][1] >= 2 * N + 2
+    rows = sum(n for _, n in blocks)
+    assert kernels.dydt_tile_rows(N, R) == rows
+    B = 32768
+    plan = kernels.tile_plan(dj, torch.float64, B, kernel='dydt')
+    assert (plan['tile'], plan['placement'], plan['rows']) == (
+        tile, 'shared', rows)
+    assert plan['smem_bytes'] == rows * tile * 8 <= kernels.SMEM_MAX
+    assert kernels.SMEM_MAX // (rows * 8) == fit
+    assert tile == min(fit, kernels.DYDT_TILE) // (4 if fit >= 4 else 1) \
+        * (4 if fit >= 4 else 1)
+    assert plan['grid'] == -(-B // tile) and plan['scratch_elems'] == 0
+    g = kernels.tile_plan(dj, torch.float64, B, kernel='dydt',
+                          placement='global')
+    assert (g['placement'], g['grid'], g['rows']) == ('global', 132, rows)
+    assert g['scratch_elems'] == 132 * g['tile'] * rows
 
 
 @pytest.mark.parametrize('name', ['flagship', 'synth'])

@@ -129,6 +129,31 @@ def test_rejection_path_matches_jax(tmp_path_factory, jax_runs, jacobian):
     _same_run(res, jax_runs('hot', 'ros23'))
 
 
+@pytest.mark.parametrize('method', ['ros23', 'rodas3'])
+@pytest.mark.parametrize('jacobian', ['xla', 'dd'])
+def test_cpu_takes_no_dydt_kernel(tmp_path_factory, jax_runs, method,
+                                  jacobian):
+    """On the CPU every f is the plain ``ops/dydt.py``: under a profiler
+    ``integrate.dydt_kernel`` reads 0, no kernel launches or builds, each
+    iteration holds 3 dy/dt spans, and the results are JAX's."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyjac_tpu_torch import profiling
+    from pyjac_tpu_torch.ops import kernels
+    _, p = _mech(tmp_path_factory)
+    y, P = _states()
+    before = dict(kernels.launches)
+    profiling.counters.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = integrate(p, y, P, 1e-5, jacobian=jacobian, method=method,
+                        device='cpu')
+    assert profiling.counters.get('integrate.dydt_kernel', 0) == 0
+    profiling.counters.clear()
+    assert kernels.launches == before and kernels._lib is None
+    spans = sum(e.name == 'pyjac.integrate.dydt' for e in prof.events())
+    assert spans == 3 * res.iterations
+    _same_run(res, jax_runs('pasr', method))
+
+
 def test_status_codes_and_per_state_budget(tmp_path_factory):
     """``max_steps`` is a per-state attempt budget: 3 attempts over 1e-3 s
     leave every state at STATUS_BUDGET with at most 3 attempts."""

@@ -191,6 +191,30 @@ def test_roofline_counts_the_outputs_bytes():
         profiling.roofline(torch.nn.Linear(2, 2), B)
 
 
+def test_roofline_counts_the_dydt_kernel():
+    """The dy/dt kernel's row (a ``DenseJacobian``'s, beside K4's): the
+    states and P read, f written and the tables K4's phases 0-4 read (not
+    the column CSR), on the 9/24 synth at B = 8; its operations those of
+    f alone, under K4's, and over the bytes' time at the flagship."""
+    mech, p = _mech('synth')
+    B = 8
+    y, _, P = random_states(mech, B, seed=3)
+    y_t = torch.as_tensor(np.ascontiguousarray(y.T))
+    P_t = torch.as_tensor(P[None].copy())
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    dj = DenseJacobian(p, device='cpu')
+    _, f = dj.call_tr(y_t, P_t)
+    tabs = [t for k, t in dj._buffers.items()
+            if k.startswith(('kp_', 'kf_')) and not k.startswith('kf_col_')]
+    rows = profiling.roofline(dj, B)
+    assert rows['dydt']['bytes'] == nb(y_t, P_t, f, *tabs)
+    assert rows['dydt']['operations'] == profiling.dydt_ops(dj, B)
+    assert 0 < rows['dydt']['operations'] < rows['dense_fused']['operations']
+    flag = profiling.roofline(DenseJacobian(_mech('flagship')[1],
+                                            device='cpu'), 32768)['dydt']
+    assert flag['bound_by'] == 'operations'
+
+
 def test_chip_smoke_takes_bounds_from_roofline():
     """``chip_smoke.py`` keeps no bound arithmetic of its own: its
     ``bound_ms`` come from ``profiling.roofline``, its peaks from here."""
