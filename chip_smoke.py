@@ -6,10 +6,8 @@ mechanism's analytical Jacobian + dy/dt through ``SparseJacobian``
 pipeline ``BigJacobian`` (kernels K5, K6, K7) at the 654-species /
 2716-reaction and USC-II (111 / 784) classes, the stiff integrator
 ``integrate(jacobian='dd')`` with the dense fused kernel K4, the float32
-path ``F32Jacobian`` (kernel K3) and the port's bench
-(``python -m pyjac_tpu_torch.bench``, with the 1M-state
-``BatchEvaluator`` cell), the user front end (the performance and
-functional testers, the CLI, the PaSR generator), the exported library
+path ``F32Jacobian`` (kernel K3), the user front end (the performance
+and functional testers, the CLI, the PaSR generator), the exported library
 (``libgen``: K1 + K2 and K4 as registered operators) and the batch mesh
 (``parallel.mesh``) — on one CUDA card, in phases; any failure exits
 non-zero at once:
@@ -50,6 +48,15 @@ non-zero at once:
    alone beside its plain version and its bound; J against
    ``DenseJacobian`` (K4) on 4096 of the states; K1 alone at the USC-II
    class (B = 32768) beside its plain version and its bound;
+5c. the device-resident chunk loop
+   (``BatchEvaluator.jacobian_dd_resident``): the flagship states tiled
+   to 1048576 + 4099 (a ragged last chunk) in chunks of 131072, and the
+   654 class (7000 ``random_states(seed=3)``) under the default chunk,
+   which the card's memory caps (``resident_chunk``): each checksum
+   within ``TOL_RESIDENT`` of the sum of the same chunks' checksums
+   taken one by one from fresh tensors, K1 and K2 launched once per
+   chunk per pass (the untimed first pass included), and its staging
+   and compute times;
 6. big kernels vs plain: K5, K6 and K7 against their plain versions on
    the same inputs, CONP and CONV, at the shape of each timed path of
    phase 8 (K5 + K6 at the 654 class, B = 1024, and at the USC-II class,
@@ -111,9 +118,6 @@ non-zero at once:
     phase 5 with its launch counter, its ``torch.profiler`` split (a
     trace short of K3's records is retaken, then not measured), and K3
     alone beside its plain version and its bound;
-14. the port's bench (``pyjac_tpu_torch.bench.run``: the headline, the
-    1M-state device-resident cell, the f32 cell), its one-line JSON and
-    the 1M cell's staging split.
 15. the user front end, in a work directory under the build directory
     (the flagship's Chemkin text and its 4032 PaSR states, the USC-II
     class with ``random_states(seed=3)``): the performance tester
@@ -195,10 +199,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from pyjac_tpu_torch import bench, cli  # noqa: E402
+from pyjac_tpu_torch import cli  # noqa: E402
 from pyjac_tpu_torch.libgen import generate_library  # noqa: E402
 from pyjac_tpu_torch.ops.dydt import dydt  # noqa: E402
 from pyjac_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from pyjac_tpu_torch.parallel.batch import (  # noqa: E402
+    BatchEvaluator, resident_chunk)
 from pyjac_tpu_torch.profiling import (  # noqa: E402
     F32_FLOP_S, F64_FLOP_S, HBM_BYTES_S, roofline)
 from pyjac_tpu_torch.core.constants import RU  # noqa: E402
@@ -243,6 +249,10 @@ DATA = os.path.join(HERE, 'tests', 'data')
 # the card library 6.6e-11, LAPACK 1.6e-10)
 TOL_LU = 1e-12
 LU_FWD_RATIO = 2.0
+# the resident loop's checksum against the same chunks' checksums taken
+# one by one (phase 5c): the same kernels on the same states, summed in
+# the same order, so only a chunk read at the wrong offset moves it
+TOL_RESIDENT = 1e-12
 TOL_ELEMENTWISE = 1e-12   # rows without a stoichiometric or net-rate sum,
 #                           per-row norm-relative
 TOL_NET = 1e-8            # arrays that sum net rates, norm-relative per
@@ -738,6 +748,59 @@ def phase_main(sj, packed, device, B, card):
                                  else 'none', B, card))
     bounds = {k: bound_of(sj, B, k) for k in ('stage_a', 'stage_b')}
     return dict(counts=counts, ms=ms, total_ms=total_ms, bounds=bounds)
+
+
+def phase_resident(cases, device, card, passes=2):
+    """Phase 5c: ``BatchEvaluator.jacobian_dd_resident`` on each of
+    ``cases``, (name, packed, y, P, chunk_b) with host states y (n, N)
+    and chunk_b 0 for the default chunk: its checksum against the same
+    chunks' checksums taken one by one from fresh tensors through a
+    module of its own, and K1 and K2 launched once per chunk per pass."""
+    for name, packed, y, P, chunk_b in cases:
+        n, N = y.shape
+        want_b = chunk_b or resident_chunk(
+            N, n, torch.cuda.get_device_properties(device).total_memory)
+        spans = [(s, min(n, s + want_b)) for s in range(0, n, want_b)]
+        ev = BatchEvaluator(packed, device=device)
+        kernels.reset_launches()
+        chk, st = ev.jacobian_dd_resident(y, P, chunk_b=chunk_b,
+                                          passes=passes)
+        counts = dict(kernels.launches)
+        del ev
+        torch.cuda.empty_cache()
+        sj = SparseJacobian(packed, device=device)
+        ref = torch.zeros((), dtype=F64, device=device)
+        for s, e in spans:
+            ref = ref + sum(torch.sum(x) for x in sj.call_tr(
+                *to_tr(y[s:e], P[s:e], device)))
+        ref = float(ref)
+        del sj
+        torch.cuda.empty_cache()
+        rel = abs(chk - ref) / abs(ref)
+        calls = len(spans) * (1 + passes)
+        print('phase 5c resident %s: %d states in %d chunks of %d (%s chunk, '
+              '%s), checksum %.9e vs chunks one by one %.9e (rel %.3e <= '
+              '%.0e), staging %.4f s (%.0f MB at %.1f MB/s host->device), '
+              'compute %.4f s = %.0f evals/s, passes %s s, launches %s (%s)'
+              % (name, n, st['n_chunks'], st['chunk_b'],
+                 'given' if chunk_b else 'default', st['kernel'], chk, ref,
+                 rel, TOL_RESIDENT, st['staging_s'],
+                 st['staging_bytes'] / 1e6, st['staging_mb_s'],
+                 st['compute_s'], st['evals_per_s'],
+                 ['%.4f' % t for t in st['pass_s']], counts, card))
+        check(st['chunk_b'] == want_b and st['n_chunks'] == len(spans)
+              and st['kernel'] == 'SparseJacobian',
+              'resident %s: chunk %d x %d (%s), expected %d x %d'
+              % (name, st['chunk_b'], st['n_chunks'], st['kernel'], want_b,
+                 len(spans)))
+        check(len(spans) > 1 and n % want_b, 'resident %s: %d states in '
+              'chunks of %d leave no ragged last chunk' % (name, n, want_b))
+        check(math.isfinite(chk) and rel <= TOL_RESIDENT,
+              'resident %s: checksum %r vs %r' % (name, chk, ref))
+        check(counts['stage_a'] == calls and counts['stage_b'] == calls
+              and sum(counts.values()) == 2 * calls,
+              'resident %s: launches %s, expected %d of K1 and of K2'
+              % (name, counts, calls))
 
 
 def bound_of(mod, B, kernel):
@@ -2111,24 +2174,6 @@ def phase_f32_main(packed, device, B, card):
     return res
 
 
-def phase_bench(device, card):
-    """Phase 14: the port's bench at its sizes; its JSON line."""
-    res = bench.run(device=device, log=sys.stdout)
-    st = res['detail']['stats_1m']
-    print('phase 14 bench 1M cell: %d states in %d chunks of %d (%s), '
-          'staging %.4f s (%.0f MB at %.1f MB/s host->device), compute %.4f s '
-          '= %.0f evals/s, passes %s s (%s)' % (
-              st['states'], st['n_chunks'], st['chunk_b'], st['kernel'],
-              st['staging_s'], st['staging_bytes'] / 1e6, st['staging_mb_s'],
-              st['compute_s'], st['evals_per_s'],
-              ['%.4f' % t for t in st['pass_s']], card))
-    line = {k: v for k, v in res.items() if k != 'detail'}
-    print(json.dumps(line))
-    check(all(math.isfinite(line[k]) and line[k] > 0 for k in (
-        'value', 'value_1m_chunked')), 'bench: %s' % line)
-    return res
-
-
 # ---------------------------------------------------------------------------
 # the user front end: the performance tester, the functional tester, the
 # CLI and the PaSR generator
@@ -3086,6 +3131,11 @@ def main():
     main_res = phase_main(sj, packed, device, 131072, card)
     del sj
     torch.cuda.empty_cache()
+    y_654, _, P_654 = random_states(p654.mech, 7000, seed=3)
+    phase_resident((('flagship', packed,
+                     *flagship_states(1048576 + 4099), 131072),
+                    ('654', p654, y_654, P_654, 0)), device, card)
+    del y_654, P_654
     synth = phase_synth_main(p_syn53, device, 131072, card)
     phase_stage_a_usc(p_usc, device, sizes['usc'], card)
     phase_sass_f64(sass_dump)
@@ -3135,8 +3185,6 @@ def main():
         'integrate': 32768, 'integrate_check': 4096, 'integrate_hot': 256,
         'unfused': 131072}, card, cut_build)
     seconds['11'] = time.perf_counter() - t0 - sum(seconds.values())
-    phase_bench(device, card)
-    seconds['14'] = time.perf_counter() - t0 - sum(seconds.values())
     front = phase_frontend(mech, device, card, main_res, f32, integ)
     seconds['15'] = time.perf_counter() - t0 - sum(seconds.values())
     lib = phase_libgen(packed, device, card)

@@ -117,9 +117,9 @@ def store_patterns(dll, N, B, dtype, card):
 def cut_call(fn, last, mod, y_t, P_t, dtype, plan):
     """The kernel cut after phase ``last`` on the launcher's arguments
     under ``plan``: its (Jt, f)."""
-    _, args, Jt, f, keep = kernels.dense_args(
-        *kernels.dense_inputs(mod, dtype), y_t, P_t, dtype,
-        kernels.plan_ints(plan))
+    _, args, (Jt, f), keep = kernels.tile_args(
+        'dense_fused' if dtype == torch.float64 else 'fused_f32',
+        *kernels.dense_inputs(mod, dtype), y_t, P_t, kernels.plan_ints(plan))
     err = fn(last, *args)
     cs.check(err == 0, 'cut %d: CUDA error %d' % (last, err))
     del keep

@@ -97,8 +97,8 @@ def finish_build(proc):
 
 def cut4_call(dll, mod, y_t, P_t):
     """K4 cut after phase 4 on the launcher's arguments: its f."""
-    _, args, _Jt, f, keep = kernels.dense_args(
-        *kernels.dense_inputs(mod, torch.float64), y_t, P_t, torch.float64)
+    _, args, (_Jt, f), keep = kernels.tile_args(
+        'dense_fused', *kernels.dense_inputs(mod, torch.float64), y_t, P_t)
     err = dll.dyk_k4_cut4(*args)
     cs.check(err == 0, 'K4 cut at 4: CUDA error %d' % err)
     del keep

@@ -2,7 +2,10 @@
 
 What it measures: ``SparseJacobian.call_tr`` (K1 + K2) and
 ``DenseJacobian.call_tr`` (K4) at the flagship (53 species, 325
-reactions) on B = 256 and 4096 PaSR-like random states, in two ways:
+reactions) on B = 256 and 4096 PaSR-like random states, and
+``BigJacobian.call_tr`` at the 654-species / 2716-reaction class on
+B = 64 random states, in its default configuration (K5 + K6) and with
+``sparse_cols=False`` (K5 + K7), in two ways:
 
 * ``sync``: one call then ``torch.cuda.synchronize()``, host clock,
   the median of 200 (what a loop that reads each result pays);
@@ -29,10 +32,11 @@ sys.path.insert(0, os.getcwd())
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from pyjac_tpu_torch.ops.jacobian_big import BigJacobian  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian  # noqa: E402
-from pyjac_tpu_torch.testers.synthetic import (flagship,  # noqa: E402
-                                               random_states)
+from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
+    flagship, packed_from_text, plausible_mechanism, random_states)
 
 CALLS = 200
 
@@ -72,15 +76,22 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     mech, packed = flagship()
+    big = packed_from_text(plausible_mechanism(654, 2716, seed=5))[1]
+    cases = ((packed, 256, (('sparse', SparseJacobian, {}),
+                            ('dense', DenseJacobian, {}))),
+             (packed, 4096, (('sparse', SparseJacobian, {}),
+                             ('dense', DenseJacobian, {}))),
+             (big, 64, (('big654', BigJacobian, {}),
+                        ('big654_dense', BigJacobian,
+                         {'sparse_cols': False}))))
     out = {'label': label, 'card': card, 'calls': CALLS, 'rows': []}
     for turn in (1, 2):
-        for B in (256, 4096):
-            y, _, P = random_states(mech, B, seed=3)
+        for p, B, mods in cases:
+            y, _, P = random_states(p.mech, B, seed=3)
             y_t = torch.as_tensor(np.ascontiguousarray(y.T), device=dev)
             P_t = torch.as_tensor(np.ascontiguousarray(P[None]), device=dev)
-            for name, cls in (('sparse', SparseJacobian),
-                              ('dense', DenseJacobian)):
-                mod = cls(packed, device=dev)
+            for name, cls, kw in mods:
+                mod = cls(p, device=dev, **kw)
                 sync, queued = measure(lambda: mod.call_tr(y_t, P_t))
                 row = dict(turn=turn, module=name, B=B, sync_ms=sync,
                            queued_ms=queued)

@@ -46,7 +46,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from pyjac_tpu_torch.ops import kernels  # noqa: E402
 from pyjac_tpu_torch.ops.jacobian_big import (  # noqa: E402
-    PARTS_INT_TABLES, BigJacobian, state_thermo)
+    BigJacobian, state_thermo)
 from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian  # noqa: E402
 from pyjac_tpu_torch.ops.rates import _LN_PA_RU  # noqa: E402
 from pyjac_tpu_torch.testers.synthetic import (  # noqa: E402
@@ -129,13 +129,13 @@ def parent_k1(dll, last, sj, y_t, P_t, keep):
 def cut_k1(dll, last, sj, y_t, P_t, plan=None):
     """The launcher's K1 cut after phase ``last`` under ``plan``: its
     outputs."""
-    _, args, out, keep = kernels.stage_a_args(*kernels.stage_a_inputs(sj),
-                                              y_t, P_t,
-                                              kernels.plan_ints(plan))
+    _, args, out, keep = kernels.tile_args(
+        'stage_a', *kernels.stage_a_inputs(sj), y_t, P_t,
+        kernels.plan_ints(plan))
     err = dll.sap_k1(last, *args)
     cs.check(err == 0, 'K1 cut %d: CUDA error %d' % (last, err))
     del keep
-    return out
+    return dict(zip(OUTS, out))
 
 
 def same(a, b):
@@ -244,11 +244,8 @@ def k5_case(dll, name, packed, B_k5, card):
     bj = BigJacobian(packed, device=dev)
     st = state_thermo(bj.packed, y_t, P_t, True)
     p = bj.packed
-    NT, NP = p.cheb_coef.shape[1:]
-    dims = [bj.N, bj.R, bj.Sf, bj.Sp, p.plog_lnP.shape[1], NT, NP,
-            int(bj.conp), int(p.has_frac_nu)]
+    tabs, dims = kernels.parts_inputs(bj)
     cdims = (ctypes.c_int * len(dims))(*dims)
-    tabs = kernels._module_tables(bj, ('kp_',), PARTS_INT_TABLES, F64)
     n_tabs, ptrs = len(tabs), kernels.table_ptrs(tabs, F64, dev, 'K5')
     pieces = (((0, bj.split_r1, 1), (bj.split_r1, bj.R - bj.split_r1, 0))
               if bj.split_r1 else ((0, bj.R, int(p.has_pres_mod)),))

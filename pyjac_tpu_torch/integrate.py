@@ -54,7 +54,7 @@ from .ops.common import as_f64, entry_device
 from .ops.dydt import dydt as dydt_dispatch
 from .ops.jacobian import eval_jacobian
 from .ops.jacobian_sparse import supports
-from .ops.kernels import lu_on_chip
+from .ops import kernels
 from .profiling import count, recording, span
 
 _D = 1.0 / (2.0 + math.sqrt(2.0))
@@ -84,10 +84,10 @@ def lu_factor(J, s):
     (h gamma).  Returns (LU, pivots, ok): ``ok`` (B,) is False where a
     pivot is exactly zero (a singular W), whose solves are then not
     finite, as are those of a non-finite W.  LU is (B, N, N) and the
-    pivots (B, N) on either path: where :func:`lu_on_chip`, the kernel
-    forms and factors W in one launch; elsewhere W is formed here and
-    the library factors it."""
-    if lu_on_chip(J):
+    pivots (B, N) on either path: where :func:`kernels.lu_on_chip`, the
+    kernel forms and factors W in one launch; elsewhere W is formed here
+    and the library factors it."""
+    if kernels.lu_on_chip(J):
         count('integrate.lu_kernel', 1)
         return tuple(torch.ops.pyjac_tpu_torch.lu_factor(J, s))
     eye = torch.eye(J.shape[-1], dtype=J.dtype, device=J.device)
@@ -99,7 +99,7 @@ def lu_factor(J, s):
 def lu_solve(fac, rhs):
     """Solve W x = rhs, (B, N), with the factors of :func:`lu_factor`."""
     LU, piv, _ = fac
-    if lu_on_chip(rhs):
+    if kernels.lu_on_chip(rhs):
         return torch.ops.pyjac_tpu_torch.lu_solve(LU, piv, rhs.contiguous())
     return torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
 
@@ -148,7 +148,6 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
     # f by the dy/dt kernel: on the card, for the mechanisms K4 takes
     kernel_f = y0.device.type == 'cuda' and supports(packed)
     if jacobian == 'dd' or kernel_f:
-        from .ops import kernels
         from .ops.jacobian_dense import DenseJacobian
         dense = DenseJacobian(packed, conp=conp, device=device)
         p_row = param[None].contiguous()

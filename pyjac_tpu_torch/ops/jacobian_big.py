@@ -51,10 +51,12 @@ from torch import nn
 
 from ..core.pack import permute_reactions, presmod_first_order
 from ..profiling import span
+from . import kernels
 from .common import F64, as_f64, entry_device
 from .jacobian import heat_terms, reaction_parts_at, state_quantities
-from .jacobian_sparse import (column_csr, column_roles, finish_rows,
-                              post_col_reference, post_rows, role_tables)
+from .jacobian_sparse import (PARTS_INT_TABLES, column_csr, column_roles,
+                              finish_rows, post_col_reference, post_rows,
+                              role_tables)
 from .thermo import eval_dsmh_dT, eval_smh
 
 # roles after the Sf + Sp slot rows of the ``roles`` array
@@ -67,13 +69,6 @@ ST_ROWS = ('T', 'logT', 'P', 'rho', 'mw_avg')
 # per-reaction category bits of the K5 kernel's ``flags`` table
 FLAG_REV, FLAG_THD, FLAG_FALL, FLAG_CHEM, FLAG_TROE, FLAG_SRI, FLAG_T2 = (
     1, 2, 4, 8, 16, 32, 64)
-
-# the int32 tables of parts_tables, in the C struct's order after the
-# float64 ones
-PARTS_INT_TABLES = ('reac_sp', 'prod_sp', 'flags', 'pd', 'plog_pos',
-                    'cheb_pos', 'plog_n', 'nu_ptr', 'nu_col', 'thd_ptr',
-                    'thd_col')
-
 
 # ---------------------------------------------------------------------------
 # column tables (numpy)
@@ -343,6 +338,12 @@ class BigJacobian(nn.Module):
     tensors it runs their plain versions.
     """
 
+    # the buffers the kernels take as int32 (the others float64)
+    INT_TABLES = frozenset(
+        ['kp_' + k for k in PARTS_INT_TABLES] +
+        ['ks_ptr', 'ks_src'] +
+        ['kd_' + k for k in ('act', 'ptr', 'src', 'spf', 'spp', 'pd')])
+
     def __init__(self, packed, conp: bool = True, sparse_cols: bool = True,
                  device='cuda'):
         super().__init__()
@@ -361,7 +362,6 @@ class BigJacobian(nn.Module):
         self.Sf, self.Sp = packed.reac_sp.shape[1], packed.prod_sp.shape[1]
         self.n_roles = self.Sf + self.Sp + len(ROLE_NAMES)
         self.n_post = post_rows(N, self.J)['fT'][1]
-        self._launch_cache = {}
         buf = lambda name, a: self.register_buffer(name, torch.as_tensor(a))
         buf('inv_mw', np.asarray(packed.inv_mw, np.float64))
         for name, arr in parts_tables(packed).items():
@@ -401,7 +401,6 @@ class BigJacobian(nn.Module):
         plain version on CPU tensors."""
         if st['rows'].device.type == 'cpu':
             return parts_reference(self.packed, st, self.conp)
-        from . import kernels
         B = st['rows'].shape[1]
         roles = torch.empty((self.n_roles, self.R, B), dtype=F64,
                             device=st['rows'].device)
@@ -422,7 +421,6 @@ class BigJacobian(nn.Module):
     def columns(self, roles, post):
         """Stage 5: the (J, N, B) Jacobian columns 1..J."""
         dev = roles.device
-        from . import kernels
         if not self.sparse_cols:
             if dev.type == 'cpu':
                 return cols_dense_reference(roles, self.tab('kd_'),

@@ -24,11 +24,13 @@ import torch
 from torch import nn
 
 from ..profiling import span
+from . import kernels
 from .common import F64, as_f64, cached, entry_device
 from .jacobian_big import (cols_dense_reference, dense_col_tables, finish,
                            parts_reference, parts_tables, state_thermo)
-from .jacobian_sparse import (FINISH_INT_TABLES, column_csr, column_roles,
-                              finish_tables, role_tables, supports)
+from .jacobian_sparse import (FINISH_INT_TABLES, PARTS_INT_TABLES,
+                              column_csr, column_roles, finish_tables,
+                              role_tables, supports)
 
 # the int32 tables of fused_tables
 FUSED_INT_TABLES = FINISH_INT_TABLES + ('col_src', 'rxn_order', 'col_order')
@@ -138,6 +140,13 @@ class DenseJacobian(nn.Module):
     raises ``NotImplementedError``.
     """
 
+    # what the kernel launcher reads of the tables: the buffers K4 and the
+    # dy/dt kernel take as int32 (the others float64), and the tile kernel
+    # kernels.tile_plan plans for this module
+    INT_TABLES = frozenset(['kp_' + k for k in PARTS_INT_TABLES] +
+                           ['kf_' + k for k in FUSED_INT_TABLES])
+    TILE_KERNEL = 'dense_fused'
+
     def __init__(self, packed, conp: bool = True, device='cuda'):
         super().__init__()
         device = entry_device(device)
@@ -169,7 +178,6 @@ class DenseJacobian(nn.Module):
         with span('pyjac.jacobian'):
             if y_t.device.type == 'cpu':
                 return dense_reference(self.packed, y_t, P_t, self.conp)
-            from . import kernels
             return kernels.dense_fused(self, y_t, P_t)
 
     def forward(self, y, P):

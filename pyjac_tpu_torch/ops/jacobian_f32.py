@@ -26,11 +26,12 @@ from torch import nn
 
 from ..core.constants import RU
 from ..profiling import span
+from . import kernels
 from .common import LOG10, cached, entry_device
 from .jacobian_big import parts_tables
 # K3 covers what K4 covers (``pallas_jacobian.supports``: sign-flipping
 # PLOG tables are refused; its 50 MB VMEM clause is a TPU limit)
-from .jacobian_dense import fused_tables, supports
+from .jacobian_dense import DenseJacobian, fused_tables, supports
 from .rates import _LN_PA_RU
 
 F32 = torch.float32
@@ -594,6 +595,10 @@ class F32Jacobian(nn.Module):
     raises ``NotImplementedError``.
     """
 
+    # K3's tables are K4's, the float ones in float32
+    INT_TABLES = DenseJacobian.INT_TABLES
+    TILE_KERNEL = 'fused_f32'
+
     def __init__(self, packed, conp: bool = True, device='cuda'):
         super().__init__()
         device = entry_device(device)
@@ -624,7 +629,6 @@ class F32Jacobian(nn.Module):
         with span('pyjac.jacobian'):
             if y_t.device.type == 'cpu':
                 return f32_reference(self.packed, y_t, P_t, self.conp)
-            from . import kernels
             return kernels.fused_f32(self, y_t, P_t)
 
     def forward(self, y, P):

@@ -43,13 +43,17 @@ import torch
 from torch import nn
 
 from ..profiling import span
+from . import kernels
 from .common import F64, as_f64, entry_device, to_device
 from .jacobian import heat_terms, reaction_parts
 
+# the int32 tables of jacobian_big.parts_tables (K5's, which K1, K4 and
+# K3 read too), in the C struct's order after the float64 ones
+PARTS_INT_TABLES = ('reac_sp', 'prod_sp', 'flags', 'pd', 'plog_pos',
+                    'cheb_pos', 'plog_n', 'nu_ptr', 'nu_col', 'thd_ptr',
+                    'thd_col')
 # the int32 tables of finish_tables (its others are float64)
 FINISH_INT_TABLES = ('nut_ptr', 'nut_row')
-# ... and of kernel_tables after K5's
-KERNEL_INT_TABLES = FINISH_INT_TABLES + ('rxn_order',)
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +412,15 @@ class SparseJacobian(nn.Module):
     ``NotImplementedError``, as ``PallasDDJacobianSparse`` does.
     """
 
+    # what the kernel launcher reads of the tables: the buffers its
+    # kernels take as int32 (the others float64), and the tile kernel
+    # kernels.tile_plan plans for this module
+    INT_TABLES = frozenset(
+        ['kp_' + k for k in PARTS_INT_TABLES] +
+        ['kf_' + k for k in FINISH_INT_TABLES] +
+        ['ka_rxn_order', 'col_ptr', 'col_src', 'kx_ptr', 'kx_src'])
+    TILE_KERNEL = 'stage_a'
+
     def __init__(self, packed, conp: bool = True, fuse_gather: bool = True,
                  device='cuda'):
         super().__init__()
@@ -449,7 +462,6 @@ class SparseJacobian(nn.Module):
         """Stage A on (N, B) states and a (1, B) pressure/density row."""
         if y_t.device.type == 'cpu':
             return stage_a_reference(self.packed, y_t, P_t, self.conp)
-        from . import kernels
         return kernels.stage_a(self, y_t, P_t)
 
     def stage_b(self, src, post):
@@ -457,7 +469,6 @@ class SparseJacobian(nn.Module):
         if src.device.type == 'cpu':
             return stage_b_reference(self.gidx, self.nuc, self.inv_mw, src,
                                      post, self.conp)
-        from . import kernels
         return kernels.stage_b(self, src, post)
 
     def stage_gather(self, src):
@@ -472,7 +483,6 @@ class SparseJacobian(nn.Module):
             rows = torch.arange(self.J * self.Rmax).reshape(self.J, self.Rmax)
             return stage_b_reference(rows, self.nuc, self.inv_mw, p1, post,
                                      self.conp)
-        from . import kernels
         return kernels.stage_b_x(self, p1, post)
 
     def call_tr(self, y_t, P_t):

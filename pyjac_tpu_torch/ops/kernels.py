@@ -6,59 +6,47 @@ once) and links them into a shared library with a plain C interface,
 at first use, into ``build/kernels/`` beside the package (override
 with ``PYJAC_TORCH_BUILD_DIR``), and loads it with ``ctypes``.  The
 library name carries a hash of the sources and flags, so an edited
-source is rebuilt and a finished build is reused.
+source is rebuilt and a finished build is reused.  Nothing is built
+when the package is imported.
 
-Nothing here is imported or built when the package is imported: the
-first CUDA launch builds.  Each launcher checks device, dtype, shape
-and contiguity, allocates its outputs and scratch with ``torch.empty``
-(K5 fills a part of an array its caller allocated: each of the two
-reaction ranges of a split), launches
-on the current CUDA stream, raises if the C entry returns a non-zero
-``cudaError_t``, and adds one to ``launches[name]``.  There is no
-fallback: a launcher given anything but CUDA tensors raises.  While a
-profiler records, each launch shows two spans (``profiling.span``):
-``pyjac.kernels.prepare`` (the checks, table pointers and library, with
-the children ``pyjac.kernels.plan``, where the launcher plans the tiles,
-and ``pyjac.kernels.alloc``, where it allocates outputs and scratch) and
-``pyjac.kernels.launch`` (the C entry's call, :func:`_launch`).
+Every launch takes one path.  A kernel's tables and dims come from its
+gatherer (the ``*_inputs`` functions), which checks each table's dtype
+(int32 where the module class's ``INT_TABLES`` names it) and shape and
+keeps them while the module's buffers are the same tensors; their
+pointers are checked on the card once (:func:`table_ptrs`).  The tile
+kernels K1, K4, K3 and dy/dt share one prologue (:func:`tile_args`,
+driven by a record per kernel), the column kernels K2, K2x, K6 and K7
+another (:func:`_launch_cols`); K5 and the LU have their own.  Each
+checks its inputs, allocates its outputs, launches on the current CUDA
+stream, raises if the C entry returns a non-zero ``cudaError_t`` and
+adds one to ``launches[name]``; a launcher given anything but CUDA
+tensors raises.  While a profiler records, each launch shows
+``pyjac.kernels.prepare`` (with ``pyjac.kernels.plan`` and
+``pyjac.kernels.alloc``) and ``pyjac.kernels.launch``.
 
-K1, K2 and K4, the kernels :mod:`pyjac_tpu_torch.libgen` exports, are
-also registered as PyTorch operators (``torch.ops.pyjac_tpu_torch.
-stage_a``, ``stage_b``, ``dense_fused``; :class:`torch.library.Library`)
-taking their tables as a list of tensors, their dimensions as a list of
-ints and, for K1 and K4, an optional tile plan, so that ``torch.export``
-can trace a call: their fake implementations give the output shapes from
-the dimensions and the batch, and their one implementation, for CUDA, is
-the launch, planning its tiles from the batch at run time unless given a
-plan.  :func:`stage_a`, :func:`stage_b` and :func:`dense_fused` always go
-through them, so the live path and an exported program run the same
-code.  A module's tables and dims are gathered once
-(:func:`stage_a_inputs`, :func:`stage_b_inputs`, :func:`dense_inputs`)
-and their pointers checked once (:func:`table_ptrs`).  The integrator's
-batched LU (``csrc/batched_lu.cu``) is registered likewise, as
-``pyjac_tpu_torch::lu_factor`` and ``::lu_solve``: it takes every
-iteration matrix of width up to :data:`LU_MAX_N` on the card
-(:func:`lu_on_chip`), called by ``integrate.lu_factor`` /
-``lu_solve``.  So is the integrator's dy/dt kernel (``csrc/dydt.cu``),
-as ``pyjac_tpu_torch::dydt`` (:func:`dydt`: K4's tables and phases cut
-down to f, states of any strides).  Importing this module registers the
-operators.
+K1, K2, K4, the dy/dt kernel and the integrator's LU are also PyTorch
+operators (``torch.ops.pyjac_tpu_torch.*``), so that ``torch.export``
+can trace a call and the live path and an exported program run the
+same code.  Importing this module registers them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import time
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..profiling import span
 from .common import F64, _tracing
+from .rates import _LN_PA_RU
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 SOURCES = ('sparse_stage_a.cu', 'sparse_stage_b.cu', 'big_parts.cu',
@@ -130,6 +118,37 @@ def _run_all(cmds):
     return ''.join(logs)
 
 
+# the C entries' argument types; each returns an int (a count, or a
+# cudaError_t), but pyjac_lu_state_bytes a long long
+_vp, _ci, _cd, _cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                       ctypes.c_longlong)
+_ARGTYPES = {
+    'pyjac_stage_a_n_tables': [],
+    'pyjac_stage_a_tile_rows': [_vp],
+    'pyjac_stage_a': [_vp, _ci, _vp, _ci, _cd, _vp, _vp, _cll, _vp, _vp, _vp,
+                      _vp, _vp, _vp, _ci, _vp],
+    'pyjac_stage_b': [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _cll, _vp],
+    'pyjac_big_parts_n_tables': [],
+    'pyjac_big_parts': [_vp, _ci, _vp, _ci, _cd, _vp, _cll, _ci, _ci, _ci,
+                        _vp, _vp],
+    'pyjac_big_cols_sparse': [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci,
+                              _ci, _cll, _vp],
+    'pyjac_big_cols_dense': [_vp] * 12 + [_ci] * 6 + [_cll, _vp],
+    'pyjac_dense_fused_n_tables': [],
+    'pyjac_dense_fused_tile_rows': [_vp],
+    'pyjac_dense_fused': [_vp, _ci, _vp, _ci, _cd, _vp, _vp, _cll, _vp, _vp,
+                          _vp, _vp, _ci, _vp],
+    'pyjac_lu_state_bytes': [_ci],
+    'pyjac_lu_factor': [_vp, _cll, _cll, _cll, _vp, _ci, _cll, _ci, _vp, _vp,
+                        _vp, _vp],
+    'pyjac_lu_solve': [_vp, _vp, _vp, _vp, _ci, _cll, _vp],
+    'pyjac_dydt_tile_rows': [_vp],
+    'pyjac_dydt': [_vp, _ci, _vp, _ci, _cd, _vp, _cll, _cll, _vp, _cll, _vp,
+                   _cll, _cll, _vp, _vp, _ci, _vp],
+}
+_ARGTYPES['pyjac_fused_f32'] = _ARGTYPES['pyjac_dense_fused']
+
+
 def load():
     """The kernels' shared library, built on first use: one nvcc per
     source, all started together, then one link."""
@@ -158,49 +177,11 @@ def load():
         for o in objs:
             o.unlink()
     lib = ctypes.CDLL(str(out))
-    vp, ci, cd, cll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
-                       ctypes.c_longlong)
-    lib.pyjac_stage_a_n_tables.argtypes = []
-    lib.pyjac_stage_a_n_tables.restype = ci
-    lib.pyjac_stage_a_tile_rows.argtypes = [vp]
-    lib.pyjac_stage_a_tile_rows.restype = ci
-    lib.pyjac_stage_a.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll,
-                                  vp, vp, vp, vp, vp, vp, ci, vp]
-    lib.pyjac_stage_a.restype = ci
-    lib.pyjac_stage_b.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, cll,
-                                  vp]
-    lib.pyjac_stage_b.restype = ci
-    lib.pyjac_big_parts_n_tables.argtypes = []
-    lib.pyjac_big_parts_n_tables.restype = ci
-    lib.pyjac_big_parts.argtypes = [vp, ci, vp, ci, cd, vp, cll, ci, ci, ci,
-                                    vp, vp]
-    lib.pyjac_big_parts.restype = ci
-    lib.pyjac_big_cols_sparse.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                          ci, cll, vp]
-    lib.pyjac_big_cols_sparse.restype = ci
-    lib.pyjac_big_cols_dense.argtypes = [vp] * 12 + [ci] * 6 + [cll, vp]
-    lib.pyjac_big_cols_dense.restype = ci
-    lib.pyjac_dense_fused_n_tables.argtypes = []
-    lib.pyjac_dense_fused_n_tables.restype = ci
-    lib.pyjac_dense_fused_tile_rows.argtypes = [vp]
-    lib.pyjac_dense_fused_tile_rows.restype = ci
-    lib.pyjac_dense_fused.argtypes = [vp, ci, vp, ci, cd, vp, vp, cll, vp, vp,
-                                      vp, vp, ci, vp]
-    lib.pyjac_dense_fused.restype = ci
-    lib.pyjac_fused_f32.argtypes = lib.pyjac_dense_fused.argtypes
-    lib.pyjac_fused_f32.restype = ci
-    lib.pyjac_lu_state_bytes.argtypes = [ci]
-    lib.pyjac_lu_state_bytes.restype = cll
-    lib.pyjac_lu_factor.argtypes = [vp, cll, cll, cll, vp, ci, cll, ci, vp,
-                                    vp, vp, vp]
-    lib.pyjac_lu_factor.restype = ci
-    lib.pyjac_lu_solve.argtypes = [vp, vp, vp, vp, ci, cll, vp]
-    lib.pyjac_lu_solve.restype = ci
-    lib.pyjac_dydt_tile_rows.argtypes = [vp]
-    lib.pyjac_dydt_tile_rows.restype = ci
-    lib.pyjac_dydt.argtypes = [vp, ci, vp, ci, cd, vp, cll, cll, vp, cll, vp,
-                               cll, cll, vp, vp, ci, vp]
-    lib.pyjac_dydt.restype = ci
+    for name, argtypes in _ARGTYPES.items():
+        entry = getattr(lib, name)
+        entry.argtypes = argtypes
+        entry.restype = (ctypes.c_longlong if name == 'pyjac_lu_state_bytes'
+                         else ctypes.c_int)
     build_info.update(seconds=time.perf_counter() - t0, library=str(out),
                       log=log)
     _lib = lib
@@ -232,13 +213,6 @@ def _on_card(name, x):
             name, x.device if isinstance(x, torch.Tensor) else type(x)))
 
 
-def _raise_on(err, what):
-    if err != 0:
-        msg = ('%s: invalid dimensions' % what if err == -1 else
-               '%s: CUDA error %d' % (what, err))
-        raise RuntimeError(msg)
-
-
 def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
@@ -253,22 +227,31 @@ def _launch(entry, args, dev, name: str, what: str) -> None:
     the launch under ``launches[name]``."""
     with span('pyjac.kernels.launch'), torch.cuda.device(dev):
         err = entry(*args)
-    _raise_on(err, what)
+    if err != 0:
+        raise RuntimeError('%s: invalid dimensions' % what if err == -1 else
+                           '%s: CUDA error %d' % (what, err))
     launches[name] += 1
 
 
-def _module_tables(mod, prefixes, int_names, dtype) -> list:
-    """The table buffers of ``mod`` whose names start with one of
-    ``prefixes``, in registration order (the C struct's), each checked
-    on any device: int32 where its name after the prefix is in
-    ``int_names``, else ``dtype``."""
-    tabs = [(k, t) for k, t in mod._buffers.items() if k[:3] in prefixes]
-    for k, t in tabs:
-        want = torch.int32 if k[3:] in int_names else dtype
-        if t.dtype != want:
-            raise ValueError('%s.%s: expected %s, got %s' % (
-                type(mod).__name__, k, want, t.dtype))
-    return [t for _, t in tabs]
+def _tables(mod, names, dtype, shapes=None) -> list:
+    """The buffers ``names`` of ``mod``, in that order, each checked on
+    any device: int32 where the module's ``INT_TABLES`` names it, else
+    ``dtype``, and of the shape ``shapes`` holds under its name, if
+    any."""
+    tabs = [mod._buffers[k] for k in names]
+    for k, t in zip(names, tabs):
+        want = (torch.int32 if k in mod.INT_TABLES else dtype,
+                tuple((shapes or {}).get(k, t.shape)))
+        if (t.dtype, tuple(t.shape)) != want:
+            raise ValueError('%s.%s: expected %s %s, got %s %s' % (
+                type(mod).__name__, k, *want, t.dtype, tuple(t.shape)))
+    return tabs
+
+
+def _prefixed(mod, prefixes) -> list:
+    """The names of ``mod``'s buffers that start with one of
+    ``prefixes``, in registration order (the C struct's)."""
+    return [k for k in mod._buffers if k[:3] in prefixes]
 
 
 def _module_inputs(mod, kernel, build):
@@ -292,15 +275,20 @@ def _module_inputs(mod, kernel, build):
 _PTRS = {}
 
 
-def table_ptrs(tabs, dtype, dev, what):
+def table_ptrs(tabs, dtype, dev, what, n_tables=None):
     """A ctypes array of the device pointers of the tables ``tabs``, each
-    checked once: on ``dev``, contiguous, int32 or ``dtype``."""
-    key = (dtype, dev) + tuple(map(id, tabs))
+    checked once: on ``dev``, contiguous, int32 or ``dtype``; and, with
+    ``n_tables``, as many as that C entry counts."""
+    key = (dtype, dev, n_tables) + tuple(map(id, tabs))
     hit = _PTRS.get(key)
     if hit is None:
         for i, t in enumerate(tabs):
             _check('%s table %d' % (what, i), t, t.shape,
                    torch.int32 if t.dtype == torch.int32 else dtype, dev)
+        n = len(tabs) if n_tables is None else getattr(load(), n_tables)()
+        if n != len(tabs):
+            raise RuntimeError('%s: table count mismatch: %d in Python, %d '
+                               'in the kernel' % (what, len(tabs), n))
         if len(_PTRS) >= 16:
             _PTRS.clear()
         hit = _PTRS[key] = (list(tabs), (ctypes.c_void_p * len(tabs))(
@@ -309,8 +297,9 @@ def table_ptrs(tabs, dtype, dev, what):
 
 
 def _kinetics_dims(mod) -> list:
-    """The dims K1 and K4 / K3 share: {N, R, Sf, Sp, Pm, NT, NP, conp,
-    has_frac, has_pm, has_spec} of ``mod``'s mechanism."""
+    """The dims K1, K4 / K3 and K5 share: {N, R, Sf, Sp, Pm, NT, NP,
+    conp, has_frac (K5's nine), has_pm, has_spec} of ``mod``'s
+    mechanism."""
     p = mod.packed
     NT, NP = p.cheb_coef.shape[1:]
     return [mod.N, mod.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
@@ -323,31 +312,68 @@ def stage_a_inputs(mod):
     K5's ``kp_``, the closure's ``kf_``, then ``ka_``; the dims
     :func:`_kinetics_dims`, S_eff (the C entry's twelve), then the rows
     of the source stack and of the post block."""
-    from .jacobian_big import PARTS_INT_TABLES
-    from .jacobian_sparse import KERNEL_INT_TABLES
     return _module_inputs(mod, 'stage_a', lambda: (
-        _module_tables(mod, ('kp_', 'kf_', 'ka_'),
-                       PARTS_INT_TABLES + KERNEL_INT_TABLES, F64),
+        _tables(mod, _prefixed(mod, ('kp_', 'kf_', 'ka_')), F64),
         _kinetics_dims(mod) + [mod.S_eff, mod.n_src, mod.n_post]))
+
+
+def _csr_tables(mod, prefix: str) -> list:
+    """The CSR ``prefix`` + {ptr, src, coef} of ``mod`` over (column,
+    species row) into an operand's rows, then inv_mw, checked."""
+    names = [prefix + k for k in ('ptr', 'src', 'coef')] + ['inv_mw']
+    return _tables(mod, names, F64, {
+        names[0]: (mod.J * mod.N + 1,), names[2]: mod._buffers[names[1]].shape,
+        'inv_mw': (mod.N,)})
 
 
 def stage_b_inputs(mod):
     """K2's (tables, dims) of ``mod`` (a ``SparseJacobian``): [col_ptr,
     col_src, col_coef, inv_mw] and [N, conp, n_src, n_post]."""
     return _module_inputs(mod, 'stage_b', lambda: (
-        [mod.col_ptr, mod.col_src, mod.col_coef, mod.inv_mw],
-        [mod.N, int(mod.conp), mod.n_src, mod.n_post]))
+        _csr_tables(mod, 'col_'), [mod.N, int(mod.conp), mod.n_src,
+                                   mod.n_post]))
 
 
 def dense_inputs(mod, dtype):
-    """K4's / K3's (tables, dims) of ``mod`` in ``dtype``: the tables
-    K5's ``kp_``, then ``kf_``; the dims :func:`_kinetics_dims`."""
-    from .jacobian_big import PARTS_INT_TABLES
-    from .jacobian_dense import FUSED_INT_TABLES
+    """K4's / K3's (tables, dims) of ``mod`` in ``dtype``, which the
+    dy/dt kernel takes too: the tables K5's ``kp_``, then ``kf_``; the
+    dims :func:`_kinetics_dims`."""
     return _module_inputs(mod, ('dense', dtype), lambda: (
-        _module_tables(mod, ('kp_', 'kf_'),
-                       PARTS_INT_TABLES + FUSED_INT_TABLES, dtype),
+        _tables(mod, _prefixed(mod, ('kp_', 'kf_')), dtype),
         _kinetics_dims(mod)))
+
+
+def parts_inputs(mod):
+    """K5's (tables, dims) of ``mod`` (a ``BigJacobian``): the tables
+    ``kp_``; the dims the leading nine of :func:`_kinetics_dims`."""
+    return _module_inputs(mod, 'big_parts', lambda: (
+        _tables(mod, _prefixed(mod, ('kp_',)), F64), _kinetics_dims(mod)[:9]))
+
+
+def cols_sparse_inputs(mod, prefix: str):
+    """K6's kernel's (tables, dims) of ``mod`` on its CSR ``prefix`` (K6:
+    ``ks_``; K2x: ``kx_``): [ptr, src, coef, inv_mw] and [N, Rmax,
+    conp]."""
+    return _module_inputs(mod, prefix, lambda: (
+        _csr_tables(mod, prefix), [mod.N, mod.Rmax, int(mod.conp)]))
+
+
+def cols_dense_inputs(mod):
+    """K7's (tables, dims) of ``mod`` (a ``BigJacobian`` with
+    ``sparse_cols=False``): its ``kd_`` tables [act, ptr, src, coef,
+    spf, spp, eff, pd] (``jacobian_big.dense_active_tables``), then
+    inv_mw; [N, R, Sf, Sp, A (``act``'s width), conp]."""
+    def build():
+        N, R, J, A = mod.N, mod.R, mod.J, mod.kd_act.shape[1]
+        names = ['kd_' + k for k in ('act', 'ptr', 'src', 'coef', 'spf',
+                                     'spp', 'eff', 'pd')] + ['inv_mw']
+        shapes = {'kd_act': (J, A), 'kd_ptr': (J * N + 1,),
+                  'kd_coef': mod.kd_src.shape, 'kd_spf': (R, mod.Sf),
+                  'kd_spp': (R, mod.Sp), 'kd_eff': (R, N), 'kd_pd': (R,),
+                  'inv_mw': (N,)}
+        return (_tables(mod, names, F64, shapes),
+                [N, R, mod.Sf, mod.Sp, A, int(mod.conp)])
+    return _module_inputs(mod, 'big_cols_dense', build)
 
 
 def stage_a(mod, y_t, P_t, plan=None) -> dict:
@@ -361,38 +387,6 @@ def stage_a(mod, y_t, P_t, plan=None) -> dict:
     out = torch.ops.pyjac_tpu_torch.stage_a(*stage_a_inputs(mod), y_t, P_t,
                                             plan_ints(plan))
     return dict(zip(('src', 'col0', 'f', 'post'), out))
-
-
-def stage_a_args(tabs, dims, y_t, P_t, plan=None):
-    """Everything a K1 launch passes, checked, for the tables and dims of
-    :func:`stage_a_inputs` under ``plan`` (:func:`plan_ints`; default
-    :func:`tile_plan`'s for the card): (the library, the argument list,
-    the outputs it fills as {src, col0, f, post}, the scratch it uses:
-    keep it until the launch)."""
-    from .rates import _LN_PA_RU
-    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
-    _check('y_t', y_t, (N, B), F64, dev)
-    _check('P_t', P_t, (1, B), F64, dev)
-    ptrs = table_ptrs(tabs, F64, dev, 'stage A')
-    lib = load()
-    if lib.pyjac_stage_a_n_tables() != len(tabs):
-        raise RuntimeError('stage-A table count mismatch: %d in Python, %d '
-                           'in the kernel' % (len(tabs),
-                                              lib.pyjac_stage_a_n_tables()))
-    cdims = (ctypes.c_int * 12)(*dims[:12])
-    if plan is None:
-        with span('pyjac.kernels.plan'):
-            plan = plan_ints(_plan(dims, 'stage_a', F64, B, _n_sm(dev)))
-    cplan = _plan_arg(plan, lib.pyjac_stage_a_tile_rows(cdims), 'stage A')
-    with span('pyjac.kernels.alloc'):
-        out = {k: torch.empty((rows, B), dtype=F64, device=dev)
-               for k, rows in (('src', dims[12]), ('col0', N), ('f', N),
-                               ('post', dims[13]))}
-        scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
-    args = [ptrs, len(tabs), cdims, 12, _LN_PA_RU, _ptr(y_t), _ptr(P_t),
-            B, *(_ptr(out[k]) for k in ('src', 'col0', 'f', 'post')),
-            _ptr(scratch), cplan, 4, _stream(dev)]
-    return lib, args, out, scratch
 
 
 def stage_b(mod, src, post):
@@ -410,45 +404,23 @@ def big_parts(mod, st_rows, roles, row0: int, rows: int, has_pm: bool):
     (5 + 3N, B): writes reaction rows [row0, row0 + rows) of ``roles``
     (n_roles, R, B), with the pressure-modification machinery when
     ``has_pm``."""
-    from .rates import _LN_PA_RU
-    from .jacobian_big import PARTS_INT_TABLES
-    dev, N, R, B = st_rows.device, mod.N, mod.R, st_rows.shape[-1]
+    what = 'K5 reaction-parts kernel'
+    dev, B = st_rows.device, st_rows.shape[-1]
     with span('pyjac.kernels.prepare'):
+        tabs, dims = parts_inputs(mod)
+        N, R = dims[:2]
         _check('st_rows', st_rows, (5 + 3 * N, B), F64, dev)
         _check('roles', roles, (mod.n_roles, R, B), F64, dev)
         if not (0 <= row0 and 0 < rows and row0 + rows <= R):
             raise ValueError('reaction rows [%d, %d) outside [0, %d)'
                              % (row0, row0 + rows, R))
-        # the checked table pointers, kept on the module under the
-        # buffers' addresses (a 654-class pass is host-bound), so a moved
-        # or reassigned buffer is checked and passed anew
-        tabs = [t for k, t in mod._buffers.items() if k.startswith('kp_')]
-        key = ('big_parts', dev) + tuple(t.data_ptr() for t in tabs)
-        cache = mod._launch_cache
-        if key not in cache:
-            names = [k for k in mod._buffers if k.startswith('kp_')]
-            for k, t in zip(names, tabs):
-                want = torch.int32 if k[3:] in PARTS_INT_TABLES else F64
-                _check('BigJacobian.' + k, t, t.shape, want, dev)
-            lib = load()
-            if lib.pyjac_big_parts_n_tables() != len(tabs):
-                raise RuntimeError(
-                    'K5 table count mismatch: %d in Python, %d in the kernel'
-                    % (len(tabs), lib.pyjac_big_parts_n_tables()))
-            p = mod.packed
-            NT, NP = p.cheb_coef.shape[1:]
-            dims = [N, R, mod.Sf, mod.Sp, p.plog_lnP.shape[1], NT, NP,
-                    int(mod.conp), int(p.has_frac_nu)]
-            cache.clear()
-            cache[key] = (
-                (ctypes.c_void_p * len(tabs))(*key[2:]),
-                (ctypes.c_int * len(dims))(*dims), len(tabs), len(dims))
-        ptrs, cdims, n_tabs, n_dims = cache[key]
+        ptrs = table_ptrs(tabs, F64, dev, what, 'pyjac_big_parts_n_tables')
         lib = load()
     _launch(lib.pyjac_big_parts,
-            (ptrs, n_tabs, cdims, n_dims, _LN_PA_RU, _ptr(st_rows), B, row0,
-             rows, int(bool(has_pm)), _ptr(roles), _stream(dev)),
-            dev, 'big_parts', 'K5 reaction-parts kernel')
+            (ptrs, len(tabs), (ctypes.c_int * len(dims))(*dims), len(dims),
+             _LN_PA_RU, _ptr(st_rows), B, row0, rows, int(bool(has_pm)),
+             _ptr(roles), _stream(dev)),
+            dev, 'big_parts', what)
     return roles
 
 
@@ -458,8 +430,8 @@ def stage_b_x(mod, p1, post):
     the pre-gathered operand ``p1`` (J * Rmax, B) and stage A's post
     rows.  K2x is K6's kernel (``csrc/big_cols_sparse.cu``) on the
     module's CSR over operand rows."""
-    return _cols_sparse(mod, p1, post, 'kx_', 'stage_b_x',
-                        'K2x column kernel')
+    return _launch_cols('stage_b_x', *cols_sparse_inputs(mod, 'kx_'), p1,
+                        (mod.J * mod.Rmax,), post, mod.n_post)
 
 
 def big_cols_sparse(mod, p1c, post):
@@ -467,69 +439,17 @@ def big_cols_sparse(mod, p1c, post):
     of ``mod`` (a ``BigJacobian`` with ``sparse_cols``): the (J, N, B)
     columns from the compressed operand ``p1c`` (J * Rmax, B) and the
     post rows."""
-    return _cols_sparse(mod, p1c, post, 'ks_', 'big_cols_sparse',
-                        'K6 sparse column kernel')
-
-
-def _cols_sparse(mod, p1, post, prefix, name, what):
-    """K6's kernel on the CSR tables ``prefix + {ptr, src, coef}`` of
-    ``mod`` over the rows of ``p1`` (J * Rmax, B); counts under
-    ``name``."""
-    dev, N, J, B = p1.device, mod.N, mod.J, p1.shape[-1]
-    with span('pyjac.kernels.prepare'):
-        _check('p1', p1, (J * mod.Rmax, B), F64, dev)
-        _check('post', post, (mod.n_post, B), F64, dev)
-        ptr, src, coef = (getattr(mod, prefix + k)
-                          for k in ('ptr', 'src', 'coef'))
-        owner = type(mod).__name__ + '.'
-        for tname, t, want, shape in ((prefix + 'ptr', ptr, torch.int32,
-                                       (J * N + 1,)),
-                                      (prefix + 'src', src, torch.int32,
-                                       src.shape),
-                                      (prefix + 'coef', coef, F64, src.shape),
-                                      ('inv_mw', mod.inv_mw, F64, (N,))):
-            _check(owner + tname, t, shape, want, dev)
-        lib = load()
-        with span('pyjac.kernels.alloc'):
-            out = torch.empty((J, N, B), dtype=F64, device=dev)
-    _launch(lib.pyjac_big_cols_sparse,
-            (_ptr(ptr), _ptr(src), _ptr(coef), _ptr(mod.inv_mw), _ptr(p1),
-             _ptr(post), _ptr(out), N, mod.Rmax, int(mod.conp), B,
-             _stream(dev)), dev, name, what)
-    return out
+    return _launch_cols('big_cols_sparse', *cols_sparse_inputs(mod, 'ks_'),
+                        p1c, (mod.J * mod.Rmax,), post, mod.n_post)
 
 
 def big_cols_dense(mod, roles, post):
     """Launch the K7 kernel (``csrc/big_cols_dense.cu``): the (J, N, B)
     columns of ``mod`` (a ``BigJacobian`` with ``sparse_cols=False``)
     from the role array and the post rows, through the per-column active
-    reactions and their CSR (``jacobian_big.dense_active_tables``)."""
-    dev, N, R, J, B = roles.device, mod.N, mod.R, mod.J, roles.shape[-1]
-    with span('pyjac.kernels.prepare'):
-        _check('roles', roles, (mod.n_roles, R, B), F64, dev)
-        _check('post', post, (mod.n_post, B), F64, dev)
-        t = mod.tab('kd_')
-        A = t['act'].shape[1]
-        for name, want, shape in (('act', torch.int32, (J, A)),
-                                  ('ptr', torch.int32, (J * N + 1,)),
-                                  ('src', torch.int32, t['src'].shape),
-                                  ('coef', F64, t['src'].shape),
-                                  ('spf', torch.int32, (R, mod.Sf)),
-                                  ('spp', torch.int32, (R, mod.Sp)),
-                                  ('eff', F64, (R, N)),
-                                  ('pd', torch.int32, (R,))):
-            _check('BigJacobian.kd_' + name, t[name], shape, want, dev)
-        _check('BigJacobian.inv_mw', mod.inv_mw, (N,), F64, dev)
-        lib = load()
-        with span('pyjac.kernels.alloc'):
-            out = torch.empty((J, N, B), dtype=F64, device=dev)
-    _launch(lib.pyjac_big_cols_dense,
-            (*(_ptr(t[k]) for k in ('act', 'ptr', 'src', 'coef', 'spf', 'spp',
-                                    'eff', 'pd')),
-             _ptr(mod.inv_mw), _ptr(roles), _ptr(post), _ptr(out), N, R,
-             mod.Sf, mod.Sp, A, int(mod.conp), B, _stream(dev)),
-            dev, 'big_cols_dense', 'K7 dense column kernel')
-    return out
+    reactions and their CSR (:func:`cols_dense_inputs`)."""
+    return _launch_cols('big_cols_dense', *cols_dense_inputs(mod), roles,
+                        (mod.n_roles, mod.R), post, mod.n_post)
 
 
 def dense_fused(mod, y_t, P_t, plan=None):
@@ -551,8 +471,21 @@ def fused_f32(mod, y_t, P_t, plan=None):
     ``Jt`` (N, N, B), [column, row, batch], and dy/dt ``f`` (N, B).
     ``plan`` as :func:`dense_fused`'s.  K3 is no operator: no exported
     program calls it."""
-    return _launch_dense(*dense_inputs(mod, torch.float32), y_t, P_t,
-                         torch.float32, plan_ints(plan))
+    return _launch_tile('fused_f32', *dense_inputs(mod, torch.float32), y_t,
+                        P_t, plan_ints(plan))
+
+
+def dydt(mod, y_t, P_t, plan=None):
+    """Launch the dy/dt kernel (``csrc/dydt.cu``) for the tables of
+    ``mod`` (a ``DenseJacobian``: K4's) on (N, B) states ``y_t`` of any
+    strides and a (1, B) pressure/density row, through the operator
+    ``pyjac_tpu_torch::dydt``: returns f (N, B), laid out as ``y_t``
+    (``torch.empty_like``), equal to K4's f bit for bit.  ``plan``: a
+    :func:`tile_plan` with ``kernel='dydt'`` in place of the planner's
+    own choice."""
+    _on_card('y_t', y_t)
+    return torch.ops.pyjac_tpu_torch.dydt(*dense_inputs(mod, F64), y_t, P_t,
+                                          plan_ints(plan))
 
 
 # the block of a state tile (csrc/state_tile.cuh TILE_THREADS: K1, K4,
@@ -632,12 +565,8 @@ def tile_plan(mod, dtype, B: int, n_sm: int = 132, tile=None,
     runs the closure's sums; on the card 8 flagship states a tile beat
     12 by 5%: PERF.md), the dy/dt kernel at most :data:`DYDT_TILE`.
     ``tile`` / ``placement`` override the choice.  Returns {tile, placement, grid, rows, smem_bytes, scratch_elems}."""
-    from .jacobian_sparse import SparseJacobian
-    if kernel is None:
-        kernel = ('stage_a' if isinstance(mod, SparseJacobian) else
-                  'dense_fused')
-    return _plan(_kinetics_dims(mod), kernel, dtype, B, n_sm, tile,
-                 placement)
+    return _plan(_kinetics_dims(mod), kernel or mod.TILE_KERNEL, dtype, B,
+                 n_sm, tile, placement)
 
 
 def _plan(dims, kernel: str, dtype, B: int, n_sm: int, tile=None,
@@ -730,95 +659,123 @@ def plan_ints(plan):
             plan['rows'], plan['scratch_elems']]
 
 
-def _plan_arg(plan, kernel_rows: int, what: str):
-    """``plan`` (:func:`plan_ints`) as the C entries take it, after
-    checking its rows against the kernel's own count."""
-    if kernel_rows != plan[3]:
-        raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
-                           'kernel' % (what, plan[3], kernel_rows))
-    return (ctypes.c_longlong * 4)(*plan[:4])
+class _Tile(NamedTuple):
+    """How a tile kernel (K1, K4, K3, dy/dt) is launched.  Its key in
+    :data:`_TILES` is its ``launches`` name and its kernel in
+    :func:`_plan`; its C entry is ``pyjac_<key>``, taking ``n_dims``
+    dims.  ``n_tables`` and ``tile_rows`` name the C entries that count
+    its tables and a state's tile rows; ``strided``: its states and
+    outputs may have any strides (each pointer followed by its two);
+    ``outputs(dims, y_t)``: its outputs, new (also the operator's fake
+    implementation); ``what``: its name in errors."""
+    n_tables: str
+    tile_rows: str
+    dtype: torch.dtype
+    n_dims: int
+    strided: bool
+    outputs: Callable
+    what: str
 
 
-# K4's kernel in each type: (C entry, launch counter, what it is)
-_DENSE_ENTRIES = {F64: ('pyjac_dense_fused', 'dense_fused',
-                        'K4 dense fused kernel'),
-                  torch.float32: ('pyjac_fused_f32', 'fused_f32',
-                                  'K3 f32 fused kernel')}
+def _dense_outputs(dims, y_t):
+    N, B = dims[0], y_t.shape[-1]
+    return y_t.new_empty((N, N, B)), y_t.new_empty((N, B))
 
 
-def _launch_dense(tabs, dims, y_t, P_t, dtype, plan=None):
-    """K4's kernel in ``dtype`` (K4, or K3 in float32) on the tables and
-    dims of :func:`dense_inputs`, counted: (Jt, f)."""
-    entry, name, what = _DENSE_ENTRIES[dtype]
-    with span('pyjac.kernels.prepare'):
-        lib, args, Jt, f, _scratch = dense_args(tabs, dims, y_t, P_t, dtype,
-                                                plan)
-    _launch(getattr(lib, entry), args, y_t.device, name, what)
-    return Jt, f
+_TILES = {
+    'stage_a': _Tile(
+        'pyjac_stage_a_n_tables', 'pyjac_stage_a_tile_rows', F64, 12, False,
+        lambda dims, y_t: tuple(y_t.new_empty((rows, y_t.shape[-1]))
+                                for rows in (dims[12], dims[0], dims[0],
+                                             dims[13])),
+        'stage A kernel'),
+    'dense_fused': _Tile(
+        'pyjac_dense_fused_n_tables', 'pyjac_dense_fused_tile_rows', F64, 11,
+        False, _dense_outputs, 'K4 dense fused kernel'),
+    'fused_f32': _Tile(
+        'pyjac_dense_fused_n_tables', 'pyjac_dense_fused_tile_rows',
+        torch.float32, 11, False, _dense_outputs, 'K3 f32 fused kernel'),
+    'dydt': _Tile(
+        'pyjac_dense_fused_n_tables', 'pyjac_dydt_tile_rows', F64, 11, True,
+        lambda dims, y_t: torch.empty_like(y_t), 'dy/dt kernel'),
+}
 
 
-def _dense_prologue(tabs, dims, y_t, P_t, dtype, kernel, what, plan,
-                    contiguous=True):
-    """The checks and plan a launch on K4's tables takes (K4 / K3,
-    ``kernel`` 'dense_fused', or the dy/dt kernel, 'dydt', whose states
-    may have any strides: not ``contiguous``): (the library, the table
-    pointers, the C dims, the plan (:func:`plan_ints`; default the
-    planner's for the card) and the plan as the C entry takes it)."""
-    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
-    _check('y_t', y_t, (N, B), dtype, dev, contiguous)
-    _check('P_t', P_t, (1, B), dtype, dev)
-    ptrs = table_ptrs(tabs, dtype, dev, what)
+def tile_args(kernel: str, tabs, dims, y_t, P_t, plan=None):
+    """Everything a launch of the tile kernel ``kernel`` (a key of
+    :data:`_TILES`) passes, checked, for its gatherer's tables and dims
+    under ``plan`` (:func:`plan_ints`; default the planner's for the
+    card): (the C entry, the arguments, the outputs it fills, the
+    scratch it uses: keep it until the launch)."""
+    k = _TILES[kernel]
+    dev, B = y_t.device, y_t.shape[-1]
+    _check('y_t', y_t, (dims[0], B), k.dtype, dev, not k.strided)
+    _check('P_t', P_t, (1, B), k.dtype, dev)
+    ptrs = table_ptrs(tabs, k.dtype, dev, k.what, k.n_tables)
     lib = load()
-    if lib.pyjac_dense_fused_n_tables() != len(tabs):
-        raise RuntimeError('%s: table count mismatch: %d in Python, %d in '
-                           'the kernel' % (what, len(tabs),
-                                           lib.pyjac_dense_fused_n_tables()))
-    cdims = (ctypes.c_int * len(dims))(*dims)
+    cdims = (ctypes.c_int * k.n_dims)(*dims[:k.n_dims])
     if plan is None:
         with span('pyjac.kernels.plan'):
-            plan = plan_ints(_plan(dims, kernel, dtype, B, _n_sm(dev)))
-    rows = (lib.pyjac_dydt_tile_rows if kernel == 'dydt' else
-            lib.pyjac_dense_fused_tile_rows)(cdims)
-    return lib, ptrs, cdims, plan, _plan_arg(plan, rows, what)
-
-
-def dense_args(tabs, dims, y_t, P_t, dtype, plan=None):
-    """Everything a launch of K4's kernel in ``dtype`` passes, checked,
-    for the tables and dims of :func:`dense_inputs` under ``plan``
-    (:func:`plan_ints`; default :func:`tile_plan`'s for the card): (the
-    library, the argument list, the outputs Jt and f it fills, the
-    scratch it uses: keep it until the launch)."""
-    from .rates import _LN_PA_RU
-    dev, N, B = y_t.device, dims[0], y_t.shape[-1]
-    lib, ptrs, cdims, plan, cplan = _dense_prologue(
-        tabs, dims, y_t, P_t, dtype, 'dense_fused', _DENSE_ENTRIES[dtype][2],
-        plan)
+            plan = plan_ints(_plan(dims, kernel, k.dtype, B, _n_sm(dev)))
+    rows = getattr(lib, k.tile_rows)(cdims)
+    if rows != plan[3]:
+        raise RuntimeError('%s: tile rows mismatch: %d in Python, %d in the '
+                           'kernel' % (k.what, plan[3], rows))
     with span('pyjac.kernels.alloc'):
-        Jt = torch.empty((N, N, B), dtype=dtype, device=dev)
-        f = torch.empty((N, B), dtype=dtype, device=dev)
-        scratch = torch.empty((max(1, plan[4]),), dtype=dtype, device=dev)
-    args = [ptrs, len(tabs), cdims, len(dims), _LN_PA_RU, _ptr(y_t),
-            _ptr(P_t), B, _ptr(Jt), _ptr(f), _ptr(scratch), cplan, 4,
-            _stream(dev)]
-    return lib, args, Jt, f, scratch
+        out = k.outputs(dims, y_t)
+        scratch = torch.empty((max(1, plan[4]),), dtype=k.dtype, device=dev)
+
+    def ref(x):  # a pointer, with its strides where they may be any
+        return (_ptr(x), *x.stride()) if k.strided else (_ptr(x),)
+    outs = out if isinstance(out, tuple) else (out,)
+    args = [ptrs, len(tabs), cdims, k.n_dims, _LN_PA_RU, *ref(y_t),
+            _ptr(P_t), B, *(a for o in outs for a in ref(o)), _ptr(scratch),
+            (ctypes.c_longlong * 4)(*plan[:4]), 4, _stream(dev)]
+    return getattr(lib, 'pyjac_' + kernel), args, out, scratch
 
 
-def dydt(mod, y_t, P_t, plan=None):
-    """Launch the dy/dt kernel (``csrc/dydt.cu``) for the tables of
-    ``mod`` (a ``DenseJacobian``: K4's) on (N, B) states ``y_t`` of any
-    strides and a (1, B) pressure/density row, through the operator
-    ``pyjac_tpu_torch::dydt``: returns f (N, B), laid out as ``y_t``
-    (``torch.empty_like``), equal to K4's f bit for bit.  ``plan``: a
-    :func:`tile_plan` with ``kernel='dydt'`` in place of the planner's
-    own choice."""
-    _on_card('y_t', y_t)
-    return torch.ops.pyjac_tpu_torch.dydt(*dense_inputs(mod, F64), y_t, P_t,
-                                          plan_ints(plan))
+def _launch_tile(kernel: str, tabs, dims, y_t, P_t, plan=None):
+    """The tile kernel ``kernel`` launched and counted: its outputs (the
+    operators' CUDA implementation)."""
+    with span('pyjac.kernels.prepare'):
+        entry, args, out, _scratch = tile_args(kernel, tabs, dims, y_t,
+                                               P_t, plan)
+    _launch(entry, args, y_t.device, kernel, _TILES[kernel].what)
+    return out
+
+
+# the column kernels by their ``launches`` name: (C entry, the leading
+# dims it takes, what it is)
+_COLS = {'stage_b': ('pyjac_stage_b', 2, 'stage B kernel'),
+         'stage_b_x': ('pyjac_big_cols_sparse', 3, 'K2x column kernel'),
+         'big_cols_sparse': ('pyjac_big_cols_sparse', 3,
+                             'K6 sparse column kernel'),
+         'big_cols_dense': ('pyjac_big_cols_dense', 6,
+                            'K7 dense column kernel')}
+
+
+def _launch_cols(kernel: str, tabs, dims, x, x_rows, post, n_post: int):
+    """The column kernel ``kernel`` on the tables and dims of its gatherer,
+    an operand ``x`` of ``x_rows`` rows and ``n_post`` post rows, counted:
+    the (J, N, B) columns."""
+    entry, n_dims, what = _COLS[kernel]
+    dev, N, B = x.device, dims[0], x.shape[-1]
+    with span('pyjac.kernels.prepare'):
+        _check(what + ' operand', x, (*x_rows, B), F64, dev)
+        _check('post', post, (n_post, B), F64, dev)
+        ptrs = table_ptrs(tabs, F64, dev, what)
+        lib = load()
+        with span('pyjac.kernels.alloc'):
+            out = torch.empty((N - 1, N, B), dtype=F64, device=dev)
+    _launch(getattr(lib, entry), (*ptrs, _ptr(x), _ptr(post), _ptr(out),
+                                  *dims[:n_dims], B, _stream(dev)),
+            dev, kernel, what)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# K1, K2 and K4 as PyTorch operators (what torch.export traces and an
-# exported program calls); one implementation each, for CUDA.  Defined
+# the operators (what torch.export traces and an exported program
+# calls); one implementation each, for CUDA.  Defined
 # through torch.library.Library rather than custom_op, whose Python
 # wrappers (device dispatch, autograd) every call would pay: a pass at a
 # small batch is bound by the host.
@@ -837,35 +794,14 @@ _OPS.define('dydt(Tensor[] tables, int[] dims, Tensor y_t, Tensor P_t, '
             'int[]? plan=None) -> Tensor')
 
 
-def _stage_a_op(tables, dims, y_t, P_t, plan=None):
-    """K1, counted: (src, col0, f, post) from :func:`stage_a_inputs`."""
-    with span('pyjac.kernels.prepare'):
-        lib, args, out, _scratch = stage_a_args(tables, dims, y_t, P_t,
-                                                plan)
-    _launch(lib.pyjac_stage_a, args, y_t.device, 'stage_a', 'stage A kernel')
-    return out['src'], out['col0'], out['f'], out['post']
-
-
 def _stage_b_op(tables, dims, src, post):
     """K2, counted: the (J, N, B) columns from :func:`stage_b_inputs`."""
-    (N, conp, n_src, n_post), B = dims, src.shape[-1]
-    dev = src.device
-    with span('pyjac.kernels.prepare'):
-        _check('src', src, (n_src, B), F64, dev)
-        _check('post', post, (n_post, B), F64, dev)
-        ptrs = table_ptrs(tables, F64, dev, 'stage B')
-        lib = load()
-        with span('pyjac.kernels.alloc'):
-            out = torch.empty((N - 1, N, B), dtype=F64, device=dev)
-    _launch(lib.pyjac_stage_b, (*ptrs, _ptr(src), _ptr(post), _ptr(out), N,
-                                conp, B, _stream(dev)),
-            dev, 'stage_b', 'stage B kernel')
-    return out
+    return _launch_cols('stage_b', tables, dims, src, (dims[2],), post,
+                        dims[3])
 
 
-def _dense_fused_op(tables, dims, y_t, P_t, plan=None):
-    """K4, counted: (Jt, f) from :func:`dense_inputs`."""
-    return _launch_dense(tables, dims, y_t, P_t, F64, plan)
+def _tile_fake(kernel: str, tables, dims, y_t, P_t, plan=None):
+    return _TILES[kernel].outputs(dims, y_t)
 
 
 def _lu_factor_op(J, s):
@@ -921,50 +857,19 @@ def _lu_solve_op(LU, piv, rhs):
     return x
 
 
-def _dydt_op(tables, dims, y_t, P_t, plan=None):
-    """The dy/dt kernel, counted: f (N, B) from :func:`dense_inputs`'
-    tables and dims, laid out as ``y_t``."""
-    from .rates import _LN_PA_RU
-    dev, B = y_t.device, y_t.shape[-1]
-    with span('pyjac.kernels.prepare'):
-        lib, ptrs, cdims, plan, cplan = _dense_prologue(
-            tables, dims, y_t, P_t, F64, 'dydt', 'dy/dt kernel', plan,
-            contiguous=False)
-        with span('pyjac.kernels.alloc'):
-            f = torch.empty_like(y_t)
-            scratch = torch.empty((max(1, plan[4]),), dtype=F64, device=dev)
-    _launch(lib.pyjac_dydt,
-            (ptrs, len(tables), cdims, len(dims), _LN_PA_RU, _ptr(y_t),
-             *y_t.stride(), _ptr(P_t), B, _ptr(f), *f.stride(),
-             _ptr(scratch), cplan, 4, _stream(dev)),
-            dev, 'dydt', 'dy/dt kernel')
-    return f
-
-
-_OPS.impl('stage_a', _stage_a_op, 'CUDA')
+for _name in ('stage_a', 'dense_fused', 'dydt'):
+    _OPS.impl(_name, functools.partial(_launch_tile, _name), 'CUDA')
+    torch.library.register_fake('pyjac_tpu_torch::' + _name,
+                                functools.partial(_tile_fake, _name),
+                                lib=_OPS)
 _OPS.impl('stage_b', _stage_b_op, 'CUDA')
-_OPS.impl('dense_fused', _dense_fused_op, 'CUDA')
 _OPS.impl('lu_factor', _lu_factor_op, 'CUDA')
 _OPS.impl('lu_solve', _lu_solve_op, 'CUDA')
-_OPS.impl('dydt', _dydt_op, 'CUDA')
-
-
-@torch.library.register_fake('pyjac_tpu_torch::stage_a', lib=_OPS)
-def _(tables, dims, y_t, P_t, plan=None):
-    B = y_t.shape[-1]
-    return tuple(y_t.new_empty((rows, B))
-                 for rows in (dims[12], dims[0], dims[0], dims[13]))
 
 
 @torch.library.register_fake('pyjac_tpu_torch::stage_b', lib=_OPS)
 def _(tables, dims, src, post):
     return src.new_empty((dims[0] - 1, dims[0], src.shape[-1]))
-
-
-@torch.library.register_fake('pyjac_tpu_torch::dense_fused', lib=_OPS)
-def _(tables, dims, y_t, P_t, plan=None):
-    N, B = dims[0], y_t.shape[-1]
-    return y_t.new_empty((N, N, B)), y_t.new_empty((N, B))
 
 
 @torch.library.register_fake('pyjac_tpu_torch::lu_factor', lib=_OPS)
@@ -977,8 +882,3 @@ def _(J, s):
 @torch.library.register_fake('pyjac_tpu_torch::lu_solve', lib=_OPS)
 def _(LU, piv, rhs):
     return rhs.new_empty(rhs.shape)
-
-
-@torch.library.register_fake('pyjac_tpu_torch::dydt', lib=_OPS)
-def _(tables, dims, y_t, P_t, plan=None):
-    return torch.empty_like(y_t)

@@ -220,10 +220,6 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _tables(mod, prefixes) -> list:
-    return [t for k, t in mod._buffers.items() if k.startswith(prefixes)]
-
-
 def _transcendental_calls(mod) -> float:
     """The exp / log / pow calls a state's reactions make in K4 / K3 and
     the dy/dt kernel (``mod``: a ``DenseJacobian`` or an
@@ -283,14 +279,14 @@ def dydt_ops(mod, B: int) -> float:
     return per_state * B
 
 
-def _column_bound(operand_rows, post_rows, csr, inv_mw, J, N, B) -> dict:
+def _column_bound(operand_rows, post_rows, tabs, J, N, B) -> dict:
     """A column kernel's bound (K2, K2x, K6): the operand and the post
-    rows read, the CSR ``csr`` = (ptr, src, coef) and 1/W read, the
+    rows read, its tables ``tabs`` = (ptr, src, coef, 1/W) read, the
     (J, N, B) columns written; per CSR entry a product and a sum, per J
     entry ``_post_col``'s 8 operations."""
-    moved = (8 * (operand_rows + post_rows) * B + _nbytes(*csr, inv_mw) +
+    moved = (8 * (operand_rows + post_rows) * B + _nbytes(*tabs) +
              8 * J * N * B)
-    return bound(moved, 2 * csr[2].numel() * B + 8 * J * N * B)
+    return bound(moved, 2 * tabs[2].numel() * B + 8 * J * N * B)
 
 
 def _dense_products(mod, B: int) -> float:
@@ -311,8 +307,8 @@ def roofline(mod, B: int) -> Dict[str, dict]:
     """{kernel: :func:`bound` row} for each port kernel ``mod`` runs on
     B states, by its launch counter's name (``kernels.launches``):
 
-    * ``SparseJacobian``: K1 ``stage_a`` (states, tables ``kp_`` /
-      ``kf_`` / ``ka_``, and its outputs src, col0, f, post: bytes only),
+    * ``SparseJacobian``: K1 ``stage_a`` (states, its tables, and its
+      outputs src, col0, f, post: bytes only),
       then K2 ``stage_b`` (``fuse_gather``) or K2x ``stage_b_x`` (the
       gathered operand, J x Rmax rows);
     * ``DenseJacobian``: K4 ``dense_fused`` (states, tables, J and f;
@@ -320,14 +316,16 @@ def roofline(mod, B: int) -> Dict[str, dict]:
       ``dydt`` on its tables (states, the tables K4's phases 0-4 read,
       f; :func:`dydt_ops`); ``F32Jacobian``: K3
       ``fused_f32``, the same in float32 at :data:`F32_FLOP_S`;
-    * ``BigJacobian``: K5 ``big_parts`` (the pre-stage rows, ``kp_``,
-      the role array), then K6 ``big_cols_sparse`` or K7
+    * ``BigJacobian``: K5 ``big_parts`` (the pre-stage rows, its
+      tables, the role array), then K6 ``big_cols_sparse`` or K7
       ``big_cols_dense`` (the slot, q and c_1 role rows and the post
-      rows read, the ``kd_`` tables but nu_net, 2 operations a nonzero
-      product of :func:`_dense_products`).
+      rows read, its tables, 2 operations a nonzero product of
+      :func:`_dense_products`).
 
-    Counted from the module's tables and the outputs' shapes, with no
-    kernel run, so it runs on any device."""
+    Counted from the tables each kernel's launch passes (the gatherers
+    of :mod:`.ops.kernels`) and the outputs' shapes, with no kernel run,
+    so it runs on any device."""
+    from .ops import kernels
     from .ops.jacobian_big import BigJacobian
     from .ops.jacobian_dense import DenseJacobian
     from .ops.jacobian_f32 import F32Jacobian
@@ -339,41 +337,42 @@ def roofline(mod, B: int) -> Dict[str, dict]:
     if isinstance(mod, SparseJacobian):
         n_out = mod.n_src + 2 * N + mod.n_post
         rows = {'stage_a': bound(8 * (N + 1 + n_out) * B + _nbytes(
-            *_tables(mod, ('kp_', 'kf_', 'ka_'))))}
+            *kernels.stage_a_inputs(mod)[0]))}
         if mod.fuse_gather:
             rows['stage_b'] = _column_bound(
-                mod.n_src, mod.n_post, (mod.col_ptr, mod.col_src,
-                                        mod.col_coef), mod.inv_mw, J, N, B)
+                mod.n_src, mod.n_post, kernels.stage_b_inputs(mod)[0], J, N,
+                B)
         else:
             rows['stage_b_x'] = _column_bound(
-                J * mod.Rmax, mod.n_post, (mod.kx_ptr, mod.kx_src,
-                                           mod.kx_coef), mod.inv_mw, J, N, B)
+                J * mod.Rmax, mod.n_post,
+                kernels.cols_sparse_inputs(mod, 'kx_')[0], J, N, B)
         return rows
     if isinstance(mod, (DenseJacobian, F32Jacobian)):
         f32 = isinstance(mod, F32Jacobian)
         item = 4 if f32 else 8
-        moved = item * (N + 1 + N * N + N) * B + _nbytes(
-            *_tables(mod, ('kp_', 'kf_')))
+        tabs = kernels.dense_inputs(mod, torch.float32 if f32 else
+                                    torch.float64)[0]
+        moved = item * (N + 1 + N * N + N) * B + _nbytes(*tabs)
         rows = {'fused_f32' if f32 else 'dense_fused': bound(
             moved, dense_ops(mod, B), F32_FLOP_S if f32 else F64_FLOP_S)}
         if not f32:
-            read = [t for k, t in mod._buffers.items()
-                    if k.startswith(('kp_', 'kf_')) and k not in (
-                        'kf_col_coef', 'kf_col_src', 'kf_col_order')]
+            # the column CSR, which only K4's phase 5 reads
+            unread = (mod.kf_col_coef, mod.kf_col_src, mod.kf_col_order)
+            read = [t for t in tabs if all(t is not u for u in unread)]
             rows['dydt'] = bound(8 * (2 * N + 1) * B + _nbytes(*read),
                                  dydt_ops(mod, B))
         return rows
     R = mod.R
     rows = {'big_parts': bound(
         8 * ((5 + 3 * N) + mod.n_roles * R) * B +
-        _nbytes(*_tables(mod, ('kp_',))))}
+        _nbytes(*kernels.parts_inputs(mod)[0]))}
     if mod.sparse_cols:
         rows['big_cols_sparse'] = _column_bound(
-            J * mod.Rmax, mod.n_post, (mod.ks_ptr, mod.ks_src, mod.ks_coef),
-            mod.inv_mw, J, N, B)
+            J * mod.Rmax, mod.n_post,
+            kernels.cols_sparse_inputs(mod, 'ks_')[0], J, N, B)
     else:
-        read = [v for k, v in mod.tab('kd_').items() if k != 'nu_net']
         moved = (8 * ((mod.Sf + mod.Sp + 2) * R + mod.n_post) * B +
-                 _nbytes(*read, mod.inv_mw) + 8 * J * N * B)
+                 _nbytes(*kernels.cols_dense_inputs(mod)[0]) +
+                 8 * J * N * B)
         rows['big_cols_dense'] = bound(moved, 2.0 * _dense_products(mod, B))
     return rows

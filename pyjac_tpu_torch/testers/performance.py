@@ -179,9 +179,9 @@ def _timed_eval(packed, method: str, y: np.ndarray, P: np.ndarray,
     """Best-of-N timed pass over the batch on ``device``; returns wall
     ms.
 
-    Measurement methodology matches ``bench.py``: the states are staged
-    on the device before the timed window (the kernel methods as the
-    (N, B) / (1, B) tensors of ``call_tr``); the window holds the call,
+    Measurement methodology: the states are staged on the device
+    before the timed window (the kernel methods as the (N, B) / (1, B)
+    tensors of ``call_tr``); the window holds the call,
     a ``torch.sum`` of its FULL outputs (no part of the work can be
     skipped) and one host synchronisation through the scalar's transfer;
     one untimed pass warms up, then the best of ``best_of`` counts.

@@ -1,5 +1,4 @@
-"""The port's ``BatchEvaluator`` and bench against the JAX package, on
-the CPU.
+"""The port's ``BatchEvaluator`` against the JAX package, on the CPU.
 
 ``BatchEvaluator(device='cpu')`` runs the plain float64 functions and
 the kernels' plain versions chunk by chunk.  These tests hold its
@@ -8,17 +7,10 @@ a one-device mesh at ``test_parallel.py``'s 1e-12 of scale, its
 ``jacobian_dd`` against the float64 ``jacobian_and_dydt``, and its
 device-resident loop against a direct whole-array checksum; they check
 the kernel route (K1 + K2; K4 only where ``SparseJacobian`` refuses, as
-the JAX package's ``mesh.py`` chooses) and that the port's bench refuses
-to run without a card.
+the JAX package's ``mesh.py`` chooses).
 """
 
 import dataclasses
-import io
-import json
-import math
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -40,7 +32,6 @@ from pyjac_tpu_torch.parallel.batch import BatchEvaluator
 
 torch.set_num_threads(1)
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # the stats keys of the JAX package's jacobian_dd_resident (mesh.py:258-265)
 JAX_RESIDENT_KEYS = {'states', 'chunk_b', 'n_chunks', 'staging_s',
@@ -186,36 +177,3 @@ def test_default_device_is_the_card(mechs):
     _, p, _, _ = mechs['synth']
     with pytest.raises(RuntimeError, match='CUDA'):
         BatchEvaluator(p)
-
-
-def test_bench_without_card_prints_no_result():
-    """``python -m pyjac_tpu_torch.bench`` exits non-zero and prints no
-    JSON line where there is no CUDA card."""
-    if torch.cuda.is_available():
-        pytest.skip('a CUDA card is present')
-    out = subprocess.run([sys.executable, '-m', 'pyjac_tpu_torch.bench'],
-                         cwd=str(REPO), capture_output=True, text=True,
-                         timeout=120)
-    assert out.returncode != 0
-    assert 'no CUDA card' in out.stderr
-    for line in out.stdout.splitlines():
-        with pytest.raises(ValueError):
-            json.loads(line)
-
-
-def test_bench_cells_on_cpu():
-    """The bench's three cells, driven at a tiny size on the CPU (the
-    kernels' plain versions): finite rates, the 1M cell's stats over a
-    ragged chunk loop, and the JSON line's keys without ``vs_baseline``."""
-    from pyjac_tpu_torch import bench
-    res = bench.run(device='cpu', log=io.StringIO(), B=48, B1m=100,
-                    Bp=32)
-    assert set(res) == {'metric', 'value', 'unit', 'value_1m_chunked',
-                        'staging_1m_s', 'detail'}
-    assert res['metric'] == bench.METRIC and res['unit'] == 'evals/sec/card'
-    st = res['detail']['stats_1m']
-    assert (st['states'], st['chunk_b'], st['n_chunks']) == (100, 48, 3)
-    assert st['kernel'] == 'SparseJacobian'
-    assert all(math.isfinite(v) and v > 0 for v in (
-        res['value'], res['value_1m_chunked'],
-        res['detail']['f32_evals_per_s']))

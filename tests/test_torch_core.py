@@ -6,6 +6,7 @@ The port copies the JAX package's parser, IR and packer (importing
 their originals field for field.
 """
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -177,6 +178,23 @@ def test_package_sources_import_no_jax():
     assert not hits, hits
 
 
+def test_kernels_imports_no_entry_module():
+    """The kernel launcher (``ops/kernels.py``) imports no ``ops.jacobian_*``
+    module, at its top or in a function: the entry modules import it, and
+    each tells it what it needs of its tables through class attributes.
+    Read from its import statements, without importing it."""
+    tree = ast.parse((PKG / 'ops' / 'kernels.py').read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names += ['%s.%s' % (node.module or '', a.name)
+                      for a in node.names]
+        elif isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+    assert names and not [n for n in names
+                          if re.search(r'(^|\.)jacobian_', n)], names
+
+
 def test_import_loads_no_jax():
     """Importing the port in a fresh interpreter loads neither jax nor
     the JAX package, nor builds or imports any kernel toolchain."""
@@ -201,7 +219,6 @@ PORT_MODULES = [
     'pyjac_tpu_torch.core.ir',
     'pyjac_tpu_torch.core.mech',
     'pyjac_tpu_torch.core.pack',
-    'pyjac_tpu_torch.bench',
     'pyjac_tpu_torch.examples',
     'pyjac_tpu_torch.examples.ignition_delay',
     'pyjac_tpu_torch.examples.multichip_batch',

@@ -348,9 +348,10 @@ def test_big_ragged_and_conv_on_card(card, conp):
 
 
 def test_big_reassigned_table_on_card(card):
-    """K5's launcher keeps its checked table pointers under the buffers'
-    addresses: a table buffer replaced after a call is passed anew, not
-    as the freed address."""
+    """K5's launcher keeps its gathered tables and their checked
+    pointers while the module's buffers are the same tensors: a table
+    buffer replaced after a call is passed anew, not as the freed
+    address."""
     _, p = flagship()
     d = np.load(DATA / 'flagship_states.npz')
     y, P = d['y'][:256], d['P'][:256]

@@ -29,7 +29,9 @@ from pyjac_tpu_torch import libgen
 from pyjac_tpu_torch.ops import common, kernels
 from pyjac_tpu_torch.ops.dydt import dydt
 from pyjac_tpu_torch.ops.jacobian import jacobian_and_dydt
+from pyjac_tpu_torch.ops.jacobian_big import BigJacobian
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian
+from pyjac_tpu_torch.ops.jacobian_f32 import F32Jacobian
 from pyjac_tpu_torch.ops.jacobian_sparse import SparseJacobian
 from pyjac_tpu_torch.testers.synthetic import (packed_from_text,
                                                plausible_mechanism,
@@ -196,31 +198,84 @@ def test_operators_fake_implementations_opcheck(mech):
                         torch.ones((1, B), dtype=torch.float64))
 
 
-def test_kernel_inputs_are_kept_while_the_buffers_are(mech):
-    """A module's K1 / K2 / K4 tables and dims, which every launch
-    passes, are gathered once and kept while its buffers are the same
+def _kinetics_dims(m):
+    """The kinetics dims as the C entries read them: N, R, the slots a
+    side, PLOG pressures, Chebyshev T and P orders, conp, has_frac,
+    has_pm, has_spec."""
+    p = m.packed
+    return [m.N, m.R, p.reac_sp.shape[1], p.prod_sp.shape[1],
+            p.plog_lnP.shape[1], *p.cheb_coef.shape[1:], int(m.conp),
+            int(p.has_frac_nu), int(p.has_pres_mod),
+            int(p.has_specific_pdep_sp)]
+
+
+# each kernel that reads a module's tables: (its module, its gatherer, the
+# dims its launch passes); the dy/dt kernel takes K4's
+GATHERERS = {
+    'K1': (lambda p: SparseJacobian(p, device='cpu'), kernels.stage_a_inputs,
+           lambda m: _kinetics_dims(m) + [m.S_eff, m.n_src, m.n_post]),
+    'K2': (lambda p: SparseJacobian(p, device='cpu'), kernels.stage_b_inputs,
+           lambda m: [m.N, 1, m.n_src, m.n_post]),
+    'K2x': (lambda p: SparseJacobian(p, fuse_gather=False, device='cpu'),
+            lambda m: kernels.cols_sparse_inputs(m, 'kx_'),
+            lambda m: [m.N, m.Rmax, 1]),
+    'K3': (lambda p: F32Jacobian(p, device='cpu'),
+           lambda m: kernels.dense_inputs(m, torch.float32), _kinetics_dims),
+    'K4': (lambda p: DenseJacobian(p, device='cpu'),
+           lambda m: kernels.dense_inputs(m, torch.float64), _kinetics_dims),
+    'dydt': (lambda p: DenseJacobian(p, device='cpu'),
+             lambda m: kernels.dense_inputs(m, torch.float64),
+             _kinetics_dims),
+    'K5': (lambda p: BigJacobian(p, device='cpu'), kernels.parts_inputs,
+           lambda m: [m.N, m.R, m.Sf, m.Sp, m.packed.plog_lnP.shape[1],
+                      *m.packed.cheb_coef.shape[1:], 1,
+                      int(m.packed.has_frac_nu)]),
+    'K6': (lambda p: BigJacobian(p, device='cpu'),
+           lambda m: kernels.cols_sparse_inputs(m, 'ks_'),
+           lambda m: [m.N, m.Rmax, 1]),
+    'K7': (lambda p: BigJacobian(p, sparse_cols=False, device='cpu'),
+           kernels.cols_dense_inputs,
+           lambda m: [m.N, m.R, m.Sf, m.Sp, m.kd_act.shape[1], 1]),
+}
+
+
+@pytest.mark.parametrize('kernel', list(GATHERERS))
+def test_kernel_inputs_are_kept_while_the_buffers_are(mech, kernel):
+    """A kernel's tables and dims, which every launch passes, are
+    gathered once and kept while its module's buffers are the same
     tensors: a reassigned table or a move gathers anew, and under a
-    tracer (a fake tensor mode) they are gathered afresh, not kept."""
+    tracer (a fake tensor mode) they are gathered afresh, not kept.  A
+    table of the wrong dtype, or of the wrong shape where the kernel
+    reads 1/W, is refused when gathered."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    p = mech[0]
-    sj = SparseJacobian(p, device='cpu')
-    kept = kernels.stage_a_inputs(sj)
-    assert kernels.stage_a_inputs(sj) is kept
-    assert kept[1][-2:] == [sj.n_src, sj.n_post] and len(kept[1]) == 14
-    assert kernels.stage_b_inputs(sj)[1] == [sj.N, 1, sj.n_src, sj.n_post]
+    make, gather, dims = GATHERERS[kernel]
+    mod = make(mech[0])
+    kept = gather(mod)
+    assert gather(mod) is kept and kept[1] == dims(mod)
+    assert all(any(t is b for b in mod._buffers.values()) for t in kept[0])
     with FakeTensorMode():
-        assert kernels.stage_a_inputs(sj) is not kept
-    assert kernels.stage_a_inputs(sj) is kept
-    name = next(k for k in sj._buffers if k.startswith('kp_'))
-    setattr(sj, name, sj._buffers[name].clone())
-    tabs = kernels.stage_a_inputs(sj)[0]
-    assert tabs is not kept[0] and tabs[0] is sj._buffers[name]
-    dj = DenseJacobian(p, device='cpu')
-    before = kernels.dense_inputs(dj, torch.float64)
-    dj.to('meta')
-    after = kernels.dense_inputs(dj, torch.float64)
-    assert after is not before and after[0][0].device.type == 'meta'
-    assert after[1] == before[1]
+        assert gather(mod) is not kept
+    assert gather(mod) is kept
+    name = next(k for k, b in mod._buffers.items()
+                if any(t is b for t in kept[0]))
+    table = mod._buffers[name]
+    setattr(mod, name, table.clone())
+    tabs = gather(mod)[0]
+    assert tabs is not kept[0] and any(t is mod._buffers[name] for t in tabs)
+    setattr(mod, name, table.to(torch.float16))
+    with pytest.raises(ValueError, match=name):
+        gather(mod)
+    setattr(mod, name, table)
+    if any(t is mod.inv_mw for t in tabs):
+        setattr(mod, 'inv_mw', torch.cat([mod.inv_mw, mod.inv_mw[:1]]))
+        with pytest.raises(ValueError, match='inv_mw'):
+            gather(mod)
+        setattr(mod, 'inv_mw', mod.inv_mw[:-1].clone())
+    before = gather(mod)
+    mod.to('meta')
+    after = gather(mod)
+    assert after is not before and after[1] == before[1]
+    assert all(t.device.type == 'meta' for t in after[0])
 
 
 def test_load_library_in_a_fresh_process(mech, tmp_path):
