@@ -6,7 +6,16 @@ and RODAS3 (Sandu et al., as distributed with KPP), with a per-state
 adaptive step, acceptance masks and status codes, over a batch of
 thermochemical states.  The ``lax.while_loop`` of the JAX package is a
 Python loop on device tensors here: each iteration is one attempted step
-of every active state and tests ``any(active)`` on the host once.
+of every active state and reads the active count on the host once.  An
+iteration computes a working set, not the whole batch: the active rows,
+padded to the smallest size of :func:`ladder` (fixed by B) that holds
+them.  When the active count fits a smaller size, the working set is
+written back into the batch's arrays and gathered anew; finished rows
+in it until then are masked as before.  On the card every kernel and op
+computes a row alone, so a state ends where it ends at any size and
+place in the working set.  On the CPU the plain paths' BLAS products sum
+in an order that depends on the batch's size, so there a state's result
+may depend on the working set's size at rounding level (~1e-10).
 
 The stage Jacobian comes from the plain f64 ``eval_jacobian``
 (``jacobian='xla'``, the JAX package's XLA path) or from
@@ -31,15 +40,18 @@ dy/dt kernel's.  Elsewhere (on the CPU, or a mechanism
 
 While a profiler records, a call is one span ``pyjac.integrate`` holding
 one ``pyjac.integrate.iteration`` a loop iteration, and each iteration
-the spans ``pyjac.integrate.dydt`` (each dy/dt the loop computes on
-its own, K4's f aside), ``.jacobian`` (the
-stage Jacobian), ``.lu_factor`` (``W`` and its factor), ``.lu_solve``
-(each stage solve) and ``.control`` (the error norm, the step controller
-and the masked updates); ``profiling.counters`` gains the state rows the
-loop computed (``integrate.state_slots``), the steps its states took,
-accepted or rejected (``integrate.state_attempts``), the factors the
-LU kernel took (``integrate.lu_kernel``) and the dy/dts the dy/dt
-kernel took (``integrate.dydt_kernel``).
+the spans ``pyjac.integrate.compact`` (a re-compaction of the working
+set, where the iteration starts with one), ``.dydt`` (each dy/dt the loop
+computes on its own, K4's f aside), ``.jacobian`` (the stage Jacobian),
+``.lu_factor`` (``W`` and its factor), ``.lu_solve`` (each stage solve)
+and ``.control`` (the error norm, the step controller and the masked
+updates); ``profiling.counters`` gains the state rows the loop computed,
+the working set's size each iteration, padding included
+(``integrate.state_slots``), its re-compactions
+(``integrate.compactions``), the steps its states took, accepted or
+rejected (``integrate.state_attempts``), the factors the LU kernel took
+(``integrate.lu_kernel``) and the dy/dts the dy/dt kernel took
+(``integrate.dydt_kernel``).
 """
 
 from __future__ import annotations
@@ -138,11 +150,31 @@ def integrate(packed, y0, param, t_end, conp: bool = True,
                           max_steps, first_step, jacobian, method, device)
 
 
+# the smallest working set: below it an iteration's kernels (K4, the LU
+# factor, 3 solves, 2 dy/dt) take no less time on the card, ~0.28 ms at
+# the 53-species flagship from 8 rows to 256 (``probes/working_set_rows.py``)
+FLOOR_ROWS = 256
+
+
+def ladder(B: int) -> tuple:
+    """The working-set sizes of the loop over a batch of B states, largest
+    first: B, the multiples of ceil(B / 8) below it, then that step's
+    halvings, none under :data:`FLOOR_ROWS` (B where B is smaller).  At
+    most 1/8 of B is padding while the card is busy, at most half in the
+    tail, where the kernels are latency-bound; a function of B alone, so
+    a call sees few shapes (12 at B = 32768)."""
+    floor = min(B, FLOOR_ROWS)
+    step = -(-B // 8)
+    sizes = {B, floor} | {k * step for k in range(1, 8)} | \
+        {step >> j for j in range(1, step.bit_length())}
+    return tuple(sorted((s for s in sizes if floor <= s <= B), reverse=True))
+
+
 def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
                first_step, jacobian, method, device):
     y0 = as_f64(y0, device)
     B = y0.shape[0]
-    param = torch.broadcast_to(as_f64(param, device), (B,))
+    param = torch.broadcast_to(as_f64(param, device), (B,)).contiguous()
     t_end = torch.broadcast_to(as_f64(t_end, device), (B,))
 
     # f by the dy/dt kernel: on the card, for the mechanisms K4 takes
@@ -150,25 +182,26 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
     if jacobian == 'dd' or kernel_f:
         from .ops.jacobian_dense import DenseJacobian
         dense = DenseJacobian(packed, conp=conp, device=device)
-        p_row = param[None].contiguous()
 
-    def f(y):
+    # f and J of the working set's (W, N) states y at their (W,)
+    # pressures/densities prm, contiguous: prm[None] is the kernels' row
+    def f(y, prm):
         with span('pyjac.integrate.dydt'):
             if kernel_f:
                 count('integrate.dydt_kernel', 1)
-                # (N, B) views of the (B, N) states and of f: no copy
-                return kernels.dydt(dense, y.T, p_row).T
-            return dydt_dispatch(packed, 0.0, param, y, conp=conp)
+                # (N, W) views of the (W, N) states and of f: no copy
+                return kernels.dydt(dense, y.T, prm[None]).T
+            return dydt_dispatch(packed, 0.0, prm, y, conp=conp)
 
     if jacobian == 'dd':
-        def jac(y):
-            Jt, fk = dense.call_tr(y.T.contiguous(), p_row)
+        def jac(y, prm):
+            Jt, fk = dense.call_tr(y.T.contiguous(), prm[None])
             # kernel layout (column, row, batch) -> (batch, row, column);
             # K4's f is f(y) where the dy/dt kernel would give it
             return Jt.permute(2, 1, 0), (fk.T if kernel_f else None)
     else:
-        def jac(y):
-            return eval_jacobian(packed, 0.0, param, y, conp=conp), None
+        def jac(y, prm):
+            return eval_jacobian(packed, 0.0, prm, y, conp=conp), None
 
     if first_step is None:
         h = t_end * 1e-6
@@ -176,24 +209,49 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
         h = torch.full((B,), first_step, dtype=y0.dtype, device=device)
     gamma = _D if method == 'ros23' else 0.5
 
-    y = y0
+    # The working set: the loop state of the rows each iteration
+    # computes, their rows in the batch, and each row's horizon te and
+    # parameter prm.  It starts as the whole batch.  When the active
+    # states fit a smaller size of the ladder, it is written into the
+    # batch's arrays (out of place: y0 is the caller's) and gathered
+    # anew: the active rows first, then inactive ones to pad it to that
+    # size, which their masked updates leave as they are.  h is not
+    # written back: a row left out is done for good.
     t = torch.zeros((B,), dtype=y0.dtype, device=device)
     steps = torch.zeros((B,), dtype=torch.int32, device=device)
     rejected = torch.zeros((B,), dtype=torch.int32, device=device)
     failed = torch.zeros((B,), dtype=torch.bool, device=device)
+    batch = (y0, t, steps, rejected, failed)
+    y = y0
+    rows = torch.arange(B, device=device)
+    te, prm = t_end, param
+    sizes = ladder(B)
     iters = 0
-    active = (t < t_end) & ~failed & (steps + rejected < max_steps)
-    going = bool(active.any())
-    while going and iters < 2 * max_steps:
+    active = (t < te) & ~failed & (steps + rejected < max_steps)
+    n_active = int(active.sum())
+    while n_active and iters < 2 * max_steps:
         with span('pyjac.integrate.iteration'):
-            count('integrate.state_slots', B)
-            hs = torch.minimum(h, t_end - t)
-            hs = torch.where(active, hs, 1.0)     # benign value on done rows
+            size = min(s for s in sizes if s >= n_active)
+            if size < y.shape[0]:
+                with span('pyjac.integrate.compact'):
+                    count('integrate.compactions', 1)
+                    state = (y, t, steps, rejected, failed)
+                    batch = tuple(a.index_copy(0, rows, w)
+                                  for a, w in zip(batch, state))
+                    # the active rows first, in order, with no host sync
+                    sel = torch.argsort(~active, stable=True)[:size]
+                    rows = rows[sel]
+                    y, t, steps, rejected, failed, h, te, prm, active = (
+                        a[sel] for a in state + (h, te, prm, active))
+            count('integrate.state_slots', y.shape[0])
+            hs = torch.minimum(h, te - t)
+            # a benign step on the rows of finished states
+            hs = torch.where(active, hs, 1.0)
 
             with span('pyjac.integrate.jacobian'):
-                J, F0 = jac(y)
+                J, F0 = jac(y, prm)
             if F0 is None:
-                F0 = f(y)
+                F0 = f(y, prm)
             with span('pyjac.integrate.lu_factor'):
                 fac = lu_factor(J, hs * gamma)
 
@@ -203,10 +261,10 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
 
             if method == 'ros23':
                 k1 = solve(F0)
-                F1 = f(y + 0.5 * hs[:, None] * k1)
+                F1 = f(y + 0.5 * hs[:, None] * k1, prm)
                 k2 = solve(F1 - k1) + k1
                 y_new = y + hs[:, None] * k2
-                F2 = f(y_new)
+                F2 = f(y_new, prm)
                 k3 = solve(F2 - _E32 * (k2 - F1) - 2.0 * (k1 - F0))
                 err_vec = (hs / 6.0)[:, None] * (k1 - 2.0 * k2 + k3)
             else:
@@ -218,9 +276,10 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
                 K1 = solve(0.5 * hc * F0)
                 K2 = solve(0.5 * hc * F0 + 2.0 * K1)
                 Y3 = y + 2.0 * K1
-                K3 = solve(0.5 * (hc * f(Y3) + K1 - K2))
+                K3 = solve(0.5 * (hc * f(Y3, prm) + K1 - K2))
                 Y4 = Y3 + K3
-                K4 = solve(0.5 * (hc * f(Y4) + K1 - K2) - (4.0 / 3.0) * K3)
+                K4 = solve(0.5 * (hc * f(Y4, prm) + K1 - K2)
+                           - (4.0 / 3.0) * K3)
                 y_new = y + 2.0 * K1 + K3 + K4
                 err_vec = K4
 
@@ -243,15 +302,18 @@ def _integrate(packed, y0, param, t_end, conp, rtol, atol, max_steps,
                 y = torch.where(accept[:, None], y_new, y)
                 t = torch.where(accept, t + hs, t)
                 # a step that underflows the representable dt is a failure
-                too_small = active & (h_next < 1e-14 * t_end) & ~accept
+                too_small = active & (h_next < 1e-14 * te) & ~accept
                 h = torch.where(active, h_next, h)
                 steps = steps + accept.to(torch.int32)
                 rejected = rejected + (active & ~accept).to(torch.int32)
                 failed = failed | too_small
             iters += 1
-            active = (t < t_end) & ~failed & (steps + rejected < max_steps)
-            going = bool(active.any())
+            active = (t < te) & ~failed & (steps + rejected < max_steps)
+            n_active = int(active.sum())   # the iteration's one host sync
 
+    y, t, steps, rejected, failed = (
+        a.index_copy(0, rows, w)
+        for a, w in zip(batch, (y, t, steps, rejected, failed)))
     success = (t >= t_end) & ~failed
     att = steps + rejected
     status = torch.where(

@@ -68,7 +68,9 @@ def trace(log_dir: str):
 
 # the port's counts while a profiler records (:func:`count`):
 # ``integrate.state_slots``, the state rows the integrator's loop
-# computed; ``integrate.state_attempts``, the steps (accepted or
+# computed (its working sets, padding included);
+# ``integrate.compactions``, the loop's re-compactions of its working
+# set; ``integrate.state_attempts``, the steps (accepted or
 # rejected) its states took; ``integrate.lu_kernel``, the factors the
 # LU kernel (csrc/batched_lu.cu) took; ``integrate.dydt_kernel``, the
 # dy/dts the dy/dt kernel (csrc/dydt.cu) took

@@ -19,8 +19,8 @@ from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import pack
 from pyjac_tpu_torch.ops import kernels
 from pyjac_tpu_torch.ops.dydt import dydt
-from pyjac_tpu_torch.integrate import (STATUS_SUCCESS, integrate, lu_factor,
-                                       lu_solve)
+from pyjac_tpu_torch.integrate import (FLOOR_ROWS, STATUS_SUCCESS, integrate,
+                                       lu_factor, lu_solve)
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian,
                                               cols_dense_reference,
                                               cols_sparse_reference, finish,
@@ -600,6 +600,47 @@ def test_integrate_dd_matches_xla_on_card(card, method):
     assert torch.equal(rd.steps, rx.steps)
     assert torch.equal(rd.rejected, rx.rejected)
     assert _floored(rd.y.cpu().numpy(), rx.y.cpu().numpy(), 1e-10) < 1e-9
+
+
+def test_integrate_working_set_is_per_state_on_card(card):
+    """The gri30 class's 4032 PaSR states over the integrate cell's flow
+    step (1e-4 s, ROS23, rtol 1e-6, atol 1e-10, ``jacobian='dd'``): the
+    loop re-compacts, and more than 60% of the rows it computes belong
+    to states still integrating (100 attempts / rows).  K4, the dy/dt
+    kernel, the LU kernels and the row-wise torch ops compute each state
+    alone at any working-set size and position: four slices of
+    ``FLOOR_ROWS`` states, each integrated as a batch of its own (one
+    size, every row computed every iteration), end bit for bit where
+    they end in the whole batch, and a random permutation of the batch
+    gives the permuted steps, rejections and status exactly, its
+    endpoints within 1e-12 floored."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyjac_tpu_torch import profiling
+    _, p = flagship()
+    d = np.load(DATA / 'flagship_states.npz')
+    y, P = d['y'], d['P']
+    kw = dict(jacobian='dd', method='ros23', rtol=1e-6, atol=1e-10)
+    profiling.counters.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = integrate(p, y, P, 1e-4, **kw)
+    c = dict(profiling.counters)
+    profiling.counters.clear()
+    assert c['integrate.compactions'] >= 2
+    assert 100.0 * c['integrate.state_attempts'] / \
+        c['integrate.state_slots'] > 60.0
+    perm = np.random.default_rng(21).permutation(len(y))
+    shuffled = integrate(p, y[perm], P[perm], 1e-4, **kw)
+    pt = torch.as_tensor(perm, device=card)
+    for k in ('steps', 'rejected', 'status'):
+        assert torch.equal(getattr(res, k)[pt], getattr(shuffled, k)), k
+    assert _floored(shuffled.y.cpu().numpy(), res.y[pt].cpu().numpy(),
+                    1e-10) < 1e-12
+    for start in (0, 1000, 2222, len(y) - FLOOR_ROWS):
+        cut = slice(start, start + FLOOR_ROWS)
+        part = integrate(p, y[cut], P[cut], 1e-4, **kw)
+        for k in ('y', 't', 'steps', 'rejected', 'status'):
+            assert torch.equal(getattr(res, k)[cut], getattr(part, k)), \
+                (start, k)
 
 
 def _lu_inputs(card, B):

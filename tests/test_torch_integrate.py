@@ -33,9 +33,10 @@ from pyjac_tpu.testers.synthetic import (plausible_mechanism,
                                          synthetic_mechanism)
 from pyjac_tpu_torch.core.mech import Mechanism
 from pyjac_tpu_torch.core.pack import packed_from_arrays
-from pyjac_tpu_torch.integrate import (STATUS_BUDGET, STATUS_SUCCESS,
-                                       ignition_delay, integrate,
-                                       lu_factor, lu_solve)
+from pyjac_tpu_torch.integrate import (FLOOR_ROWS, STATUS_BUDGET,
+                                       STATUS_SUCCESS, ignition_delay,
+                                       integrate, ladder, lu_factor,
+                                       lu_solve)
 
 torch.set_num_threads(1)
 
@@ -190,6 +191,84 @@ def test_mixed_horizons(tmp_path_factory):
         assert int(alone.steps[0]) == int(res.steps[i])
         assert _floored(res.y[i:i + 1].numpy(), alone.y.numpy()) < 1e-12
     assert _floored(res.y[:1].numpy(), res.y[2:].numpy()) > 1e-6
+
+
+@pytest.mark.parametrize('method', ['ros23', 'rodas3'])
+def test_working_set_keeps_each_state_alone(tmp_path_factory, method):
+    """384 flagship PaSR states, every eighth heated by 300 K, from a
+    first step of 1e-9 s to horizons spread over 1e-10 - 1e-4 s (and 0
+    for 48, so the loop compacts before its first iteration, while its
+    states are the caller's) with a budget of 20 attempts: the active
+    count falls through the ladder's sizes (384, 336, 288, 256), the
+    loop re-compacts at least twice, steps are rejected, and the longest
+    horizons end in STATUS_BUDGET.  Each state takes the steps,
+    rejections and status it takes in JAX's integrate of the same batch
+    and its endpoint lies within 1e-9 floored of JAX's; it ends at
+    JAX's t where it reached t_end, and within 1e-9 of it where its
+    budget ran out (a sum of adapted steps, which the two sides round
+    apart by up to ~4e-10 with one size or many).  Every twelfth state
+    takes the steps, rejections and status it takes integrated alone,
+    its endpoint within 1e-9 floored (the plain versions' BLAS products
+    sum in an order that depends on the batch size).  The caller's
+    states are left as they were."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyjac_tpu_torch import profiling
+    jp, p = _mech(tmp_path_factory)
+    B = 384
+    y, P = _states(slice(0, B))
+    y[::8, 0] += 300.0
+    t_end = np.geomspace(1e-10, 1e-4, B)[
+        np.random.default_rng(0).permutation(B)]
+    t_end[1::8] = 0.0
+    kw = dict(rtol=1e-6, atol=1e-10, max_steps=20, first_step=1e-9,
+              method=method)
+    y_in = torch.as_tensor(y)
+    profiling.counters.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = integrate(p, y_in, P, t_end, device='cpu', **kw)
+    compactions = profiling.counters.get('integrate.compactions', 0)
+    profiling.counters.clear()
+    assert compactions >= 2
+    assert np.array_equal(y_in.numpy(), y)
+    status = res.status.numpy()
+    assert (status == STATUS_BUDGET).any() and (status == STATUS_SUCCESS).any()
+    assert int(res.rejected.sum()) > 0
+    jres = jintegrate(jp, jnp.asarray(y), jnp.asarray(P), jnp.asarray(t_end),
+                      **kw)
+    for k in ('steps', 'rejected', 'status'):
+        assert np.array_equal(getattr(res, k).numpy(),
+                              np.asarray(getattr(jres, k))), k
+    assert _floored(res.y.numpy(), jres.y) <= 1e-9
+    t, jt = res.t.numpy(), np.asarray(jres.t)
+    done = status == STATUS_SUCCESS
+    assert np.array_equal(t[done], jt[done])
+    assert np.allclose(t[~done], jt[~done], rtol=1e-9, atol=0.0)
+    for i in range(0, B, 12):
+        alone = integrate(p, y[i:i + 1], P[i:i + 1], t_end[i], device='cpu',
+                          **kw)
+        for k in ('steps', 'rejected', 'status'):
+            assert int(getattr(alone, k)[0]) == int(getattr(res, k)[i]), (i, k)
+        assert _floored(res.y[i:i + 1].numpy(), alone.y.numpy()) <= 1e-9
+
+
+def test_ladder_is_a_function_of_the_batch():
+    """The working-set sizes: B alone at or below the floor; else B, the
+    multiples of ceil(B / 8) below it and their step's halvings, down to
+    the floor, so padding is at most an eighth of B above B / 8."""
+    assert ladder(1) == (1,) and ladder(100) == (100,)
+    assert ladder(FLOOR_ROWS) == (FLOOR_ROWS,)
+    assert ladder(384) == (384, 336, 288, 256)
+    assert ladder(1000) == (1000, 875, 750, 625, 500, 375, 256)
+    big = ladder(32768)
+    assert big[:8] == tuple(4096 * k for k in range(8, 0, -1))
+    assert big[8:] == (2048, 1024, 512, 256)
+    for B in (257, 300, 1029, 4032, 4099, 131072):
+        sizes = ladder(B)
+        assert sizes[0] == B and sizes[-1] == FLOOR_ROWS
+        assert list(sizes) == sorted(set(sizes), reverse=True)
+        assert len(sizes) <= 17
+        for n in range(max(B // 8, FLOOR_ROWS), B + 1, max(1, B // 97)):
+            assert min(s for s in sizes if s >= n) - n <= -(-B // 8)
 
 
 def test_unknown_options_raise(tmp_path_factory):

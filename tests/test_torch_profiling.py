@@ -23,6 +23,7 @@ from pyjac_tpu.core.mech import Mechanism as JMechanism
 from pyjac_tpu.core.pack import pack as jpack
 from pyjac_tpu.profiling import cost_estimate as jcost_estimate
 from pyjac_tpu_torch import integrate, libgen, profiling
+from pyjac_tpu_torch.integrate import ladder
 from pyjac_tpu_torch.ops.jacobian_big import (BigJacobian, finish,
                                               source_stack, state_thermo)
 from pyjac_tpu_torch.ops.jacobian_dense import DenseJacobian
@@ -231,13 +232,29 @@ def test_chip_smoke_takes_bounds_from_roofline():
 HORIZONS = np.array([0.0, 1e-9, 2e-9, 1e-8])
 
 
-def _integrate(method):
-    """The plain path's integration of 4 random states of the 9/24
-    synth, 8 loop iterations."""
+def _integrate(method, n=len(HORIZONS)):
+    """The plain path's integration of n random states of the 9/24
+    synth at the horizons :data:`HORIZONS` repeated, 8 loop
+    iterations."""
     mech, p = _mech('synth')
-    y, _, P = random_states(mech, len(HORIZONS), seed=3)
-    return integrate(p, y, P, HORIZONS, rtol=1e-3, atol=1e-6, max_steps=8,
-                     method=method, device='cpu')
+    y, _, P = random_states(mech, n, seed=3)
+    return integrate(p, y, P, np.resize(HORIZONS, n), rtol=1e-3,
+                     atol=1e-6, max_steps=8, method=method, device='cpu')
+
+
+def _working_sets(attempts):
+    """(rows computed, re-compactions) of the loop over states that took
+    ``attempts``: before iteration i the states with more than i attempts
+    are active, and the working set is the smallest size of the ladder
+    that holds them, where that is smaller than the one before."""
+    sizes = ladder(len(attempts))
+    size, rows, compactions = len(attempts), 0, 0
+    for i in range(int(attempts.max())):
+        fit = min(s for s in sizes if s >= int((attempts > i).sum()))
+        if fit < size:
+            size, compactions = fit, compactions + 1
+        rows += size
+    return rows, compactions
 
 
 def _profiled(fn):
@@ -260,37 +277,49 @@ def test_spans_and_counters_are_off_without_a_profiler():
     assert profiling.counters == {}
 
 
+@pytest.mark.parametrize('n', [len(HORIZONS), 320])
 @pytest.mark.parametrize('method,solves', [('ros23', 3), ('rodas3', 4)])
-def test_integrate_spans_and_counters(method, solves):
+def test_integrate_spans_and_counters(method, solves, n):
     """Under a profiler a call records ``pyjac.integrate``, one
     ``iteration`` a loop iteration, and in each 3 ``dydt``, 1
     ``jacobian``, 1 ``lu_factor``, 3 (RODAS3 4) ``lu_solve`` and 1
-    ``control``; the counters hold B rows an iteration and every step
-    the states took; the results are bit-equal to an unprofiled call."""
-    off = _integrate(method)
+    ``control``, and a ``compact`` in each that re-compacts; the
+    counters hold the rows of every iteration's working set (B an
+    iteration at B = 4, one size; at 320 a quarter of the states is done
+    before the loop, which compacts to 256 first), the re-compactions and
+    every step the states took; the results are bit-equal to an
+    unprofiled call."""
+    off = _integrate(method, n)
     profiling.counters.clear()
-    on, events = _profiled(lambda: _integrate(method))
+    on, events = _profiled(lambda: _integrate(method, n))
     for a, b in zip(off, on):
         assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
                 else a == b)
-    n = on.iterations
+    iters = on.iterations
+    attempts = on.steps + on.rejected
+    rows, compactions = _working_sets(attempts.numpy())
+    assert compactions == (n > len(HORIZONS))
     it = 'pyjac.integrate.iteration'
     got = collections.Counter(
         (e.name, e.cpu_parent.name if e.cpu_parent else None)
         for e in events if e.name.startswith('pyjac.'))
-    assert got == {('pyjac.integrate', None): 1,
-                   (it, 'pyjac.integrate'): n,
-                   ('pyjac.integrate.dydt', it): 3 * n,
-                   ('pyjac.integrate.jacobian', it): n,
-                   ('pyjac.integrate.lu_factor', it): n,
-                   ('pyjac.integrate.lu_solve', it): solves * n,
-                   ('pyjac.integrate.control', it): n}
-    attempts = int((on.steps + on.rejected).sum())
+    want = {('pyjac.integrate', None): 1,
+            (it, 'pyjac.integrate'): iters,
+            ('pyjac.integrate.dydt', it): 3 * iters,
+            ('pyjac.integrate.jacobian', it): iters,
+            ('pyjac.integrate.lu_factor', it): iters,
+            ('pyjac.integrate.lu_solve', it): solves * iters,
+            ('pyjac.integrate.control', it): iters,
+            ('pyjac.integrate.compact', it): compactions}
+    assert got == {k: v for k, v in want.items() if v}
     assert int(on.rejected.sum()) > 0
-    assert profiling.counters == {
-        'integrate.state_slots': len(HORIZONS) * n,
-        'integrate.state_attempts': attempts}
-    assert attempts < len(HORIZONS) * n
+    want = {'integrate.state_slots': rows,
+            'integrate.state_attempts': int(attempts.sum()),
+            'integrate.compactions': compactions}
+    assert profiling.counters == {k: v for k, v in want.items() if v}
+    assert int(attempts.sum()) < n * iters
+    if n == len(HORIZONS):
+        assert rows == n * iters
 
 
 def test_entry_span_holds_the_module_call():
